@@ -8,15 +8,23 @@
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: csrc/mt.cu and csrc/front.cu with nvcc and the native BVH
-     builder csrc/bvh_builder.cpp with g++, all started together;
+  2. build: csrc/mt.cu, csrc/front.cu and csrc/wave.cu with nvcc and the
+     native BVH builder csrc/bvh_builder.cpp with g++, all started
+     together;
   3. kernel parity on the card, each kernel against its plain PyTorch
      version on 65,536 seeded rays: mt_closest and mt_anyhit on
      cornell_box and multi_bsdf_scene (t and tri equal, u and v within
      1e-6, occlusion equal); front_full and front_slab_extract on the
      tables of the full-size terrain_scene and of multi_bsdf_scene, both
      with NaN rows, t_limit mixed (T_MAX, short, 0): every packed key
-     equal bit for bit;
+     equal bit for bit; row_gather (direct and staged) against indexing
+     at the TPU probe's geometry (K 10,987, R 4,096) and on the terrain's
+     row table with repeated and boundary indices; wave_mt against
+     wave_mt_plain on both scenes' front tables (W = 1 and W = 4, closest
+     and any-hit, dead rays, dead columns with out-of-range ids) and
+     wave_sweep against wave_sweep_plain on 300 rays, and both on rays
+     that start on a triangle (a winning t of -0.0 is stored as +0.0):
+     t, cluster and lane equal bit for bit;
   4. tracer against oracle: intersect_clusters / occluded_clusters on the
      full-size terrain_scene against mt_closest / mt_anyhit over all its
      triangles, 65,536 camera and random rays: occlusion equal, tri equal
@@ -24,18 +32,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   5. main path, through Renderer(..., device="cuda"): cornell_box
      256x256 and multi_bsdf_scene 512x512 with the brute tracer (as
      before), then terrain_scene 256x256 with use_bvh=True (hierarchical
-     front table, front_full), a short terrain render with
-     tracer_tune={"sc_topk": "pallas"} (front_slab_extract), and
-     multi_bsdf_scene 512x512 with use_bvh=True (dense front table),
-     whose film is held against the brute film. Films are checked; the
-     launch counts are zeroed before each render and read after it;
+     front table, front_full, wave_mt, wave_sweep), a short terrain
+     render with tracer_tune={"sc_topk": "pallas"} (front_slab_extract),
+     and multi_bsdf_scene 512x512 with use_bvh=True (dense front table,
+     wave_mt), whose film is held against the brute film; last the
+     row-gather probe through its entry point
+     (tools/row_gather_probe.py: row_gather, both variants). Films are
+     checked; the launch counts are zeroed before each run and read
+     after it; every BVH render must take fewer host syncs than waves;
      prints wall seconds and rays/s, rays counted as W*H*spp*depth*2 as
      in bench.py;
   6. the whole path with the kernels against the whole path with their
-     plain versions, both on the card: cornell_box 64x64 (MT kernels) and
-     terrain_scene 256x256 (front_full), films equal to rtol 1e-5;
-  7. kernel timing with CUDA events at 65,536 rays, beside each kernel's
-     bound and its plain version's time.
+     plain versions, both on the card: cornell_box 64x64 (MT kernels),
+     terrain_scene 256x256 and multi_bsdf_scene 512x512 with the BVH
+     (front and wave kernels against plain=True), films equal to rtol
+     1e-5;
+  7. kernel timing with CUDA events, beside each kernel's bound and its
+     plain version's time: the MT and front kernels at 65,536 rays;
+     row_gather at the probe's geometry (both variants, also as ns per
+     row and GB/s, beside index_select); wave_mt on the terrain's first
+     and eighth wave of 65,536 rays; wave_sweep at 8 rays x all clusters.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -100,7 +116,7 @@ def build_all(mods):
         secs = {name: f.result() for name, f in futures.items()}
     print(f"built into {mods['mt'].BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
           + " ".join(f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
-    for name in ("mt", "front"):
+    for name in ("mt", "front", "wave"):
         for line in mods[name].build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  " + line.strip(), flush=True)
@@ -223,6 +239,133 @@ def front_parity(front, cases):
     return err
 
 
+def bits(x):
+    """A float32 tensor as its int32 bits, for comparisons to the bit."""
+    return x.contiguous().view(torch.int32)
+
+
+def fresh_state(best_t):
+    """The tracer's state before its first wave: best t as given, no
+    cluster (-1), lane 0."""
+    n, dev = best_t.shape[0], best_t.device
+    return [best_t.clone(), torch.full((n,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev)]
+
+
+def front_table(ct, data, p, d, tlim):
+    """The front table (ttbl, ctbl) the tracer makes for these rays."""
+    bvh = data.bvh
+    k = bvh["cluster_rows"].shape[0]
+    kk = min(ct.MAX_FRONT, k)
+    if k > ct.DENSE_K and "sc_bmin" in bvh:
+        ttbl, ctbl, _ = ct._front_table_hierarchical(p, d, bvh, tlim, kk)
+    else:
+        ttbl, ctbl, _ = ct._front_table_dense(p, d, bvh, tlim, kk)
+    return ttbl, ctbl
+
+
+def wave_parity(wave, ct, probe, cases, dev):
+    """The three wave kernels against their plain versions, bit for bit.
+    cases: (name, scene data with its BVH, p, d, tlim). Returns the
+    largest absolute difference per kernel (0 when they agree)."""
+    err = {"row_gather": 0.0, "wave_mt": 0.0, "wave_sweep": 0.0}
+
+    # row_gather: the probe's table and indices, then the terrain's own
+    # table with repeated and boundary indices
+    gathers = [("probe geometry", *probe.inputs(dev))]
+    table = cases[0][1].bvh["cluster_rows"]
+    k = table.shape[0]
+    rs = np.random.RandomState(21)
+    idx = rs.randint(0, k, size=4099).astype(np.int32)
+    idx[:64] = idx[64]          # one row 65 times
+    idx[100:104] = (0, k - 1, 0, k - 1)
+    gathers.append((f"{cases[0][0]} rows", torch.from_numpy(idx).to(dev), table))
+    for label, idx, table in gathers:
+        want = table[idx.long()]
+        for variant in wave.VARIANTS:
+            got = wave.row_gather(idx, table, variant)
+            torch.cuda.synchronize()
+            bad = int((bits(got) != bits(want)).sum())
+            print(f"row_gather {variant} on {label}: K {table.shape[0]}, R {idx.shape[0]}, "
+                  f"mismatched words {bad} of {want.numel()}", flush=True)
+            check(bad == 0, f"row_gather {variant} differs from indexing on {label}")
+            err["row_gather"] = max(err["row_gather"], float((got - want).abs().max()))
+
+    def agree(kname, label, got, want):
+        bad = [int((bits(g) != bits(w)).sum()) if g.dtype == torch.float32
+               else int((g != w).sum()) for g, w in zip(got, want)]
+        hits = int((want[1] >= 0).sum())
+        print(f"{kname} {label}: {hits} rays hold a hit; mismatches t {bad[0]} cluster "
+              f"{bad[1]} lane {bad[2]}", flush=True)
+        check(sum(bad) == 0, f"{kname} disagrees with its plain version on {label}")
+        err[kname] = max(err[kname], float((got[0] - want[0]).abs().max()))
+        return hits
+
+    # rays that start ON a triangle (the first vertex of lane 0 of their
+    # cluster): t is +0.0 or -0.0 by the determinant's sign, and both the
+    # kernels and the plain versions store +0.0
+    table = cases[0][1].bvh["cluster_rows"]
+    n0 = 4096
+    cid = torch.arange(n0, dtype=torch.int32, device=dev) % table.shape[0]
+    p0 = table[cid.long(), 0:3, 0].contiguous()
+    d0 = random_rays(23, n0, dev)[1]
+    far = torch.full((n0,), T_MAX, dtype=torch.float32, device=dev)
+    for kname, run in (
+        ("wave_mt", lambda fn, st: fn(p0, d0, table, torch.zeros_like(far)[:, None],
+                                      cid[:, None], False, *st)),
+        ("wave_sweep", lambda fn, st: fn(p0, d0, table, cid[:300], *st)),  # rays 0..299
+    ):
+        states = []
+        for fn in (getattr(wave, kname), getattr(wave, kname + "_plain")):
+            states.append(fresh_state(far))
+            run(fn, states[-1])
+        torch.cuda.synchronize()
+        zero = states[1][0] == 0
+        print(f"{kname}, origins on a triangle: {int(zero.sum())} rays win at t = 0", flush=True)
+        agree(kname, f"on {cases[0][0]}, {n0} origins on a triangle", *states)
+        check(int(zero.sum()) > n0 // 100, f"{kname}: no ray wins at t = 0, no test")
+        check(bool((bits(states[0][0])[zero] == 0).all()), f"{kname} stores a t of -0.0")
+
+    for name, data, p, d, tlim in cases:
+        table = data.bvh["cluster_rows"]
+        k = table.shape[0]
+        n = p.shape[0]
+        ttbl, ctbl = front_table(ct, data, p, d, tlim)
+        for any_hit in (False, True):
+            for lo, hi in ((0, 1), (0, 4), (5, 6)):
+                # the table's own column range (row stride kk), and for the
+                # any-hit runs a copy whose every fifth ray has only dead
+                # columns, their ids out of range
+                col_t, col_c = ttbl[:, lo:hi], ctbl[:, lo:hi]
+                if any_hit:
+                    col_t, col_c = col_t.clone(), col_c.clone()
+                    col_t[::5] = T_MAX
+                    col_c[::5] = k + 100
+                    col_c[::10] = -7
+                states = []
+                for fn in (wave.wave_mt, wave.wave_mt_plain):
+                    state = fresh_state(tlim)
+                    if any_hit:
+                        state[1][1::4] = 3  # rays that already hold a hit
+                    fn(p, d, table, col_t, col_c, any_hit, *state)
+                    states.append(state)
+                torch.cuda.synchronize()
+                label = (f"on {name}, columns [{lo}, {hi}), "
+                         f"{'any-hit' if any_hit else 'closest'}")
+                hits = agree("wave_mt", label, *states)
+                check(0 < hits < n, f"wave_mt {label}: {hits} of {n} rays hit, no test")
+        idx = torch.from_numpy(np.random.RandomState(22).permutation(n)[:300].astype(np.int32)).to(dev)
+        states = []
+        for fn in (wave.wave_sweep, wave.wave_sweep_plain):
+            state = fresh_state(tlim)
+            fn(p, d, table, idx, *state)
+            states.append(state)
+        torch.cuda.synchronize()
+        hits = agree("wave_sweep", f"on {name}, 300 rays x {k} clusters", *states)
+        check(0 < hits <= 300, f"wave_sweep on {name}: {hits} rays hit, no test")
+    return err
+
+
 def tracer_vs_oracle(mt, ct, terrain, data, dev):
     """Phase 4: the cluster tracer on the full-size terrain against the
     brute kernels over all its triangles."""
@@ -293,10 +436,10 @@ def zero_counts(*mods):
             mod.LAUNCHES[k] = 0
 
 
-def main_path(mt, front, pt, scenes, dev):
-    """Phase 5: the full-size renders through the Renderer entry point.
-    Returns the launch counts summed over the renders, and what was found
-    per render."""
+def main_path(mt, front, wave, ct, probe, pt, scenes, dev):
+    """Phase 5: the full-size renders through the Renderer entry point,
+    then the row-gather probe through its own. Returns the launch counts
+    summed over them."""
     from phosphorus_mk2_tpu_torch.integrator.path import make_scene_tables
 
     brute = dict(samples_per_pixel=16, samples_per_pass=4)
@@ -308,14 +451,14 @@ def main_path(mt, front, pt, scenes, dev):
         ("multi_bsdf_scene brute", "multi_bsdf_scene", 512, 512,
          dict(use_bvh=False, path_depth=9, **brute), ("mt_closest", "mt_anyhit")),
         ("terrain_scene bvh", "terrain_scene", 256, 256,
-         dict(use_bvh=True, path_depth=4, **brute), ("front_full",)),
+         dict(use_bvh=True, path_depth=4, **brute), ("front_full", "wave_mt", "wave_sweep")),
         ("terrain_scene bvh sc_topk=pallas", "terrain_scene", 256, 256,
          dict(use_bvh=True, path_depth=2, samples_per_pixel=2, samples_per_pass=2,
-              tracer_tune={"sc_topk": "pallas"}), ("front_slab_extract",)),
+              tracer_tune={"sc_topk": "pallas"}), ("front_slab_extract", "wave_mt")),
         ("multi_bsdf_scene bvh", "multi_bsdf_scene", 512, 512,
-         dict(use_bvh=True, path_depth=9, **brute), ()),
+         dict(use_bvh=True, path_depth=9, **brute), ("wave_mt",)),
     ]
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES)}
+    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
     per_render, films = [], {}
     for label, name, w, h, kw, expect in configs:
         opts = pt.Options(**kw)
@@ -325,11 +468,14 @@ def main_path(mt, front, pt, scenes, dev):
         setup = time.perf_counter() - t0
         r.render()  # warm-up: allocator and first launches, not timed
         torch.cuda.synchronize()
-        zero_counts(mt, front)
+        zero_counts(mt, front, wave)
+        for k in ct.STATS:
+            ct.STATS[k] = 0
         t0 = time.perf_counter()
         film = r.render()  # returns host arrays: the device work is done
         secs = time.perf_counter() - t0
-        counts = {**mt.LAUNCHES, **front.LAUNCHES}
+        counts = {**mt.LAUNCHES, **front.LAUNCHES, **wave.LAUNCHES}
+        traced = dict(ct.STATS)
         for k in expect:
             check(counts[k] > 0, f"{label}: kernel {k} was not launched on the main path")
         for k in counts:
@@ -348,6 +494,11 @@ def main_path(mt, front, pt, scenes, dev):
             check(k > 2048, f"{label}: K = {k} clusters do not take the hierarchical front table")
         else:
             stats = box_film_checks(film, label)
+        if opts.use_bvh:
+            stats += (f"; {traced['traces']} traces, {traced['waves']} waves, {traced['syncs']} "
+                      f"host syncs, {traced['fallback_rays']} exact-fallback rays")
+            check(traced["syncs"] < traced["waves"],
+                  f"{label}: {traced['syncs']} host syncs for {traced['waves']} waves")
         films[label] = film["color"]
         print(f"{label} {w}x{h} spp {opts.samples_per_pixel} depth {opts.path_depth}: "
               f"{secs:.6f} s, {rays / secs:.1f} rays/s ({rays / secs / 1e6:.4f} Mrays/s); "
@@ -355,7 +506,7 @@ def main_path(mt, front, pt, scenes, dev):
               flush=True)
         per_render.append({"render": label, "width": w, "height": h, "seconds": secs,
                            "rays_per_s": rays / secs, "setup_seconds": setup,
-                           "launches": counts, "passes": passes})
+                           "launches": counts, "passes": passes, "traced": traced})
     # the dense-front cluster tracer against the brute tracer, whole films:
     # both find the same triangles but for exact-t ties, and a tie changes
     # one path's whole contribution
@@ -365,6 +516,19 @@ def main_path(mt, front, pt, scenes, dev):
           f"pixels within rtol 1e-5 {close:.6f}, means {a.mean():.6f} {b.mean():.6f}", flush=True)
     check(close >= 0.999, f"multi_bsdf_scene: only {close} of the bvh film's pixels match brute")
     check(np.isclose(a.mean(), b.mean(), rtol=1e-4), "multi_bsdf_scene: film means differ")
+    # the row-gather probe, as its command line runs it
+    zero_counts(mt, front, wave)
+    probed = [probe.probe(variant, device="cuda") for variant in wave.VARIANTS]
+    check(wave.LAUNCHES["row_gather"] > 0, "the probe did not launch row_gather")
+    totals["row_gather"] += wave.LAUNCHES["row_gather"]
+    idx, table = probe.inputs("cpu")
+    want = float(table[idx.long(), 0].double().sum())  # float64 sums: order-safe to 1e-12
+    for res in probed:
+        print(f"row_gather_probe {json.dumps(res)}", flush=True)
+        check(math.isclose(res["checksum"], want, rel_tol=1e-12),
+              f"the probe's checksum {res['checksum']} is not {want}")
+    per_render.append({"render": "row_gather_probe", "launches": dict(wave.LAUNCHES),
+                       "variants": probed})
     print(json.dumps({"main_path": per_render}), flush=True)
     return totals
 
@@ -389,17 +553,18 @@ def whole_path_vs_plain(mt, pt, scenes, dev):
     check(np.allclose(films[0], films[1], rtol=1e-5, atol=0.0),
           f"kernel path film differs from the plain path film by {diff}")
 
-    films = []
-    for tune in (None, {"plain": True}):
-        opts = pt.Options(use_bvh=True, samples_per_pixel=2, samples_per_pass=2, path_depth=4,
-                          tracer_tune=tune)
-        films.append(pt.Renderer(scenes.terrain_scene(width=256, height=256), opts,
-                                 device="cuda").render()["color"])
-    diff = float(np.abs(films[0] - films[1]).max())
-    print(f"terrain_scene 256x256 2 spp depth 4: front_full vs front_full_plain film "
-          f"max |diff| {diff:.3g}, mean {films[0].mean():.6f}", flush=True)
-    check(np.allclose(films[0], films[1], rtol=1e-5, atol=0.0),
-          f"front_full film differs from the front_full_plain film by {diff}")
+    for name, w, h, depth in (("terrain_scene", 256, 256, 4), ("multi_bsdf_scene", 512, 512, 9)):
+        films = []
+        for tune in (None, {"plain": True}):
+            opts = pt.Options(use_bvh=True, samples_per_pixel=2, samples_per_pass=2,
+                              path_depth=depth, tracer_tune=tune)
+            films.append(pt.Renderer(getattr(scenes, name)(width=w, height=h), opts,
+                                     device="cuda").render()["color"])
+        diff = float(np.abs(films[0] - films[1]).max())
+        print(f"{name} {w}x{h} 2 spp depth {depth} use_bvh=True: front and wave kernels vs "
+              f"plain=True film max |diff| {diff:.3g}, mean {films[0].mean():.6f}", flush=True)
+        check(np.allclose(films[0], films[1], rtol=1e-5, atol=0.0),
+              f"{name}: the kernels' film differs from the plain=True film by {diff}")
 
 
 def device_events(fn):
@@ -439,19 +604,21 @@ def profile_render(pt, ct, scenes):
     of its kernels, the kernel count, the kernels that take the most
     device time and, for the cluster tracer, waves and host syncs per
     trace."""
-    for name, w, h, depth, bvh in (("cornell_box", 256, 256, 4, False),
-                                   ("multi_bsdf_scene", 512, 512, 9, False),
-                                   ("terrain_scene", 256, 256, 4, True),
-                                   ("multi_bsdf_scene", 512, 512, 9, True)):
+    for name, w, h, depth, bvh, wavefront in (
+            ("cornell_box", 256, 256, 4, False, 0), ("multi_bsdf_scene", 512, 512, 9, False, 0),
+            ("terrain_scene", 256, 256, 4, True, 0), ("multi_bsdf_scene", 512, 512, 9, True, 0),
+            # the brute tracer's wavefront for the cluster tracer: one chunk a pass, not 8
+            ("multi_bsdf_scene", 512, 512, 9, True, 1 << 20)):
         opts = pt.Options(use_bvh=bvh, samples_per_pixel=4, samples_per_pass=4,
-                          path_depth=depth)
+                          path_depth=depth, max_wavefront=wavefront)
         r = pt.Renderer(getattr(scenes, name)(width=w, height=h), opts, device="cuda")
         r.render()
         torch.cuda.synchronize()
         for k in ct.STATS:
             ct.STATS[k] = 0
         wall, kernels = device_events(r.render)
-        tag = f"profile {name} {w}x{h} 4 spp depth {depth} use_bvh={bvh}"
+        tag = (f"profile {name} {w}x{h} 4 spp depth {depth} use_bvh={bvh}"
+               + (f" max_wavefront={wavefront}" if wavefront else ""))
         if bvh:
             s = ct.STATS
             tr = max(s["traces"], 1)
@@ -473,18 +640,6 @@ def profile_render(pt, ct, scenes):
               f"(idle share {1 - busy / span:.4f} of the span, {1 - busy / wall:.4f} of the wall)")
         for kname, (n, s) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
             print(f"  {s:.6f} s {100 * s / busy:6.2f}% {n:6d}x  {kname[:110]}")
-
-
-def cuda_ms(fn, reps=20):
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def anyhit_tests_needed(mt, table, p, d, tmax):
@@ -511,6 +666,8 @@ def anyhit_tests_needed(mt, table, p, d, tmax):
 def mt_timing(mt, scenes, dev, launches, errs):
     """Phase 7, MT kernels: ms per launch at the headline shape (65,536
     rays against the cornell_box table), the bound and the plain ms."""
+    from phosphorus_mk2_tpu_torch.tools.row_gather_probe import launch_ms
+
     out = []
     for name in ("cornell_box", "multi_bsdf_scene"):
         data = getattr(scenes, name)(8, 8).build(device=dev)
@@ -526,8 +683,8 @@ def mt_timing(mt, scenes, dev, launches, errs):
             ("mt_anyhit", lambda: mt.mt_anyhit(table, p, d, tmax),
              lambda: mt.mt_anyhit_plain(table, p, d, tmax), tests_any, 28, 4),
         ):
-            ms = cuda_ms(fn)
-            plain_ms = cuda_ms(plain, reps=3)
+            ms = launch_ms(fn)
+            plain_ms = launch_ms(plain, reps=3)
             ops_ms = tests * MT_OPS_PER_TEST / H100_FP32_OPS * 1e3
             bytes_ms = (N_RAYS * (in_b + out_b) + table.numel() * 4) / H100_BYTES * 1e3
             row = {
@@ -560,6 +717,8 @@ def front_timing(front, cases, launches, errs):
     Bound: bytes = rays x (28 B in + 4 B per key out) + the tables once;
     operations = per ray K2 slab tests + jj x K2 key compares + SC member
     slab tests per VALID parent (counted from these rays' parent keys)."""
+    from phosphorus_mk2_tpu_torch.tools.row_gather_probe import launch_ms
+
     out = []
     for name, bvh, p, d, tlim in cases:
         slab, full, jj = front_args(bvh, p, d, tlim)
@@ -578,8 +737,8 @@ def front_timing(front, cases, launches, errs):
              lambda: front.front_slab_extract_plain(*slab), base_ops, jj, k2 * 24,
              "phosphorus_mk2_tpu/accel/pallas_front.py:36"),
         ):
-            ms = cuda_ms(fn)
-            plain_ms = cuda_ms(plain, reps=3)
+            ms = launch_ms(fn)
+            plain_ms = launch_ms(plain, reps=3)
             ops_ms = ops / H100_FP32_OPS * 1e3
             bytes_ms = (n * (28 + 4 * keys) + table_b) / H100_BYTES * 1e3
             row = {
@@ -603,6 +762,141 @@ def front_timing(front, cases, launches, errs):
     return out[0]
 
 
+def wave_timing(wave, ct, probe, case, launches, errs, dev):
+    """Phase 7, wave kernels. Bounds from this run's inputs.
+
+    row_gather: the probe's geometry; bytes = each DISTINCT row read once
+    (the indices are drawn with replacement) + every row written + the
+    indices. wave_mt: waves 1 and 8 of a closest-hit trace of the case's
+    rays (the state wave 8 meets is made by the kernel itself; the table
+    is as warm in L2 as a trace leaves it); bytes = 28 a live pair (ray
+    and id) + 8 a ray (tnear, best t) + 12 a winner written + the rows,
+    given twice: each DISTINCT cluster's 4,608-byte row once (the table
+    is one input, read once: the bound), and every live pair's row from
+    device memory; operations = live pairs x 128 tests x 46. wave_sweep: 8 rays x every
+    cluster; bytes = the table once; operations = pairs x 128 x 46."""
+    launch_ms = probe.launch_ms
+    rows = []
+    # ---- row_gather: cold (the L2 emptied before each launch, what the
+    # bound assumes) and warm (launch after launch, rows and output in L2)
+    idx, table = probe.inputs(dev)
+    idx_long = idx.long()
+    r = idx.shape[0]
+    row_b = table.shape[1] * table.shape[2] * 4
+    calls = {v: (lambda v=v: wave.row_gather(idx, table, v)) for v in wave.VARIANTS}
+    calls["indexing"] = lambda: wave.row_gather_plain(idx, table)
+    calls["index_select"] = lambda: torch.index_select(table, 0, idx_long)
+    flush = probe.l2_flush()
+    cold = {k: launch_ms(fn, before=flush) for k, fn in calls.items()}
+    warm = {k: launch_ms(fn) for k, fn in calls.items()}
+    distinct = int(torch.unique(idx).numel())  # a row fetched twice is read once
+    bound = (distinct * row_b + r * row_b + r * 4) / H100_BYTES * 1e3
+    rows.append({
+        "name": "row_gather", "route": "cuda",
+        "source": "phosphorus_mk2_tpu_torch/csrc/wave.cu",
+        "replaces": "tools/tpu_r4q_dma.py:46",
+        "launches": launches["row_gather"], "max_abs_err": errs["row_gather"],
+        "ms": cold["direct"], "ms_staged": cold["staged"], "plain_ms": cold["indexing"],
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": cold["index_select"],
+        "parity": True,
+        "shape": f"R {r} rows ({distinct} distinct) of {row_b} B out of K {table.shape[0]}",
+        "cold": {k: {"ms": t, **probe.per_row(t, r)} for k, t in cold.items()},
+        "warm": {k: {"ms": t, **probe.per_row(t, r)} for k, t in warm.items()},
+    })
+    for label, ms in (("cold", cold), ("warm", warm)):
+        print(f"row_gather R {r}, K {table.shape[0]}, L2 {label}: " + ", ".join(
+            f"{k} {t:.5f} ms ({probe.per_row(t, r)['ns_per_row']:.2f} ns/row, "
+            f"{probe.per_row(t, r)['eff_gbps']:.1f} GB/s fetched)" for k, t in ms.items())
+            + f"; bound {bound:.5f} ms (bytes: {distinct} distinct rows read, {r} written)",
+            flush=True)
+
+    # ---- wave_mt: the first and the eighth wave of a closest-hit trace
+    name, data, p, d, _ = case
+    table = data.bvh["cluster_rows"]
+    k = table.shape[0]
+    n = p.shape[0]
+    tlim = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
+    ttbl, ctbl = front_table(ct, data, p, d, tlim)
+    state = fresh_state(tlim)
+    waves = []
+    for w in range(8):
+        col_t, col_c = ttbl[:, w : w + 1], ctbl[:, w : w + 1]
+        if w in (0, 7):
+            saved = [x.clone() for x in state]
+
+            def reset(saved=saved):
+                for x, y in zip(state, saved):
+                    x.copy_(y)
+
+            live = wave.live_columns(col_t, state[0], state[1], False)[:, 0]
+            pairs = int(live.sum())
+            distinct = int(torch.unique(col_c[:, 0][live]).numel())
+            ms_k = launch_ms(lambda: wave.wave_mt(p, d, table, col_t, col_c, False, *state),
+                             before=reset)
+            ms_p = launch_ms(
+                lambda: wave.wave_mt_plain(p, d, table, col_t, col_c, False, *state), reps=3,
+                before=reset)
+            reset()
+            wave.wave_mt(p, d, table, col_t, col_c, False, *state)
+            won = int((bits(state[0]) != bits(saved[0])).sum())
+            ops_ms = pairs * 128 * MT_OPS_PER_TEST / H100_FP32_OPS * 1e3
+            rest = pairs * 28 + n * 8 + won * 12
+            hbm_ms = (pairs * row_b + rest) / H100_BYTES * 1e3
+            l2_ms = (distinct * row_b + rest) / H100_BYTES * 1e3
+            waves.append({"wave": w + 1, "rays": n, "live_pairs": pairs, "live_share": pairs / n,
+                          "distinct_clusters": distinct, "winners": won, "ms": ms_k,
+                          "plain_ms": ms_p, "ops_ms": ops_ms, "bound_ms": max(ops_ms, l2_ms),
+                          "bound_ms_every_row_from_device_memory": max(ops_ms, hbm_ms)})
+            print(f"wave_mt on {name}, wave {w + 1} of {n} rays: live share {pairs / n:.4f} "
+                  f"({pairs} rows, {distinct} distinct clusters), {won} winners; {ms_k:.5f} "
+                  f"ms/launch, plain {ms_p:.4f} ms; bound {max(ops_ms, l2_ms):.5f} ms with each "
+                  f"distinct row read once, {max(ops_ms, hbm_ms):.5f} ms with every row from "
+                  f"device memory (ops {ops_ms:.5f} ms)", flush=True)
+        else:
+            wave.wave_mt(p, d, table, col_t, col_c, False, *state)
+    first = waves[0]
+    rows.append({
+        "name": "wave_mt", "route": "cuda",
+        "source": "phosphorus_mk2_tpu_torch/csrc/wave.cu",
+        "replaces": "phosphorus_mk2_tpu/accel/cluster_traverse.py:680",
+        "launches": launches["wave_mt"], "max_abs_err": errs["wave_mt"],
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": "bytes" if first["bound_ms"] > first["ops_ms"] else "operations",
+        "library_ms": None, "parity": True,
+        "shape": f"{n} rays x 1 column, K {k} clusters ({name}), wave 1", "waves": waves,
+    })
+
+    # ---- wave_sweep: 8 rays against every cluster
+    m = 8
+    idx8 = torch.arange(0, n, n // m, dtype=torch.int32, device=dev)[:m]
+    start = fresh_state(tlim)
+    state = [x.clone() for x in start]
+
+    def reset8():
+        for x, y in zip(state, start):
+            x.copy_(y)
+
+    ms_k = launch_ms(lambda: wave.wave_sweep(p, d, table, idx8, *state), before=reset8)
+    ms_p = launch_ms(lambda: wave.wave_sweep_plain(p, d, table, idx8, *state), reps=3,
+                     before=reset8)
+    ops_ms = m * k * 128 * MT_OPS_PER_TEST / H100_FP32_OPS * 1e3
+    bytes_ms = (k * row_b + m * (28 + 12)) / H100_BYTES * 1e3
+    rows.append({
+        "name": "wave_sweep", "route": "cuda",
+        "source": "phosphorus_mk2_tpu_torch/csrc/wave.cu",
+        "replaces": "phosphorus_mk2_tpu/accel/cluster_traverse.py:834",
+        "launches": launches["wave_sweep"], "max_abs_err": errs["wave_sweep"],
+        "ms": ms_k, "plain_ms": ms_p, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None, "parity": True,
+        "shape": f"{m} rays x K {k} clusters ({name})",
+    })
+    print(f"wave_sweep on {name}, {m} rays x {k} clusters: {ms_k:.5f} ms/launch, plain "
+          f"{ms_p:.4f} ms, bound {max(ops_ms, bytes_ms):.5f} ms (ops {ops_ms:.5f} ms, bytes "
+          f"{bytes_ms:.5f} ms)", flush=True)
+    return rows
+
+
 def run(profile: bool, upto: int) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -611,8 +905,9 @@ def run(profile: bool, upto: int) -> int:
         import phosphorus_mk2_tpu_torch as pt
         from phosphorus_mk2_tpu_torch import scenes
         from phosphorus_mk2_tpu_torch.accel import cluster_traverse as ct
-        from phosphorus_mk2_tpu_torch.accel import front, mt, native_bvh
+        from phosphorus_mk2_tpu_torch.accel import front, mt, native_bvh, wave
         from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
+        from phosphorus_mk2_tpu_torch.tools import row_gather_probe as probe
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -624,7 +919,7 @@ def run(profile: bool, upto: int) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device {kind}", flush=True)
 
     phase("2 build")
-    build_all({"mt": mt, "front": front, "native_bvh": native_bvh})
+    build_all({"mt": mt, "front": front, "wave": wave, "native_bvh": native_bvh})
     if upto < 3:
         return 0
 
@@ -644,6 +939,9 @@ def run(profile: bool, upto: int) -> int:
     cases = [("terrain_scene", bvh, tp, td, mixed_limits(5, N_RAYS, dev)),
              ("multi_bsdf_scene", multi_data.bvh, mp, md, mixed_limits(6, N_RAYS, dev))]
     errs.update(front_parity(front, cases))
+    wave_cases = [("terrain_scene", terrain_data, tp, td, cases[0][4]),
+                  ("multi_bsdf_scene", multi_data, mp, md, cases[1][4])]
+    errs.update(wave_parity(wave, ct, probe, wave_cases, dev))
     if upto < 4:
         return 0
 
@@ -651,7 +949,7 @@ def run(profile: bool, upto: int) -> int:
     ties, fallback_share = tracer_vs_oracle(mt, ct, terrain, terrain_data, dev)
 
     phase("5 main path")
-    launches = main_path(mt, front, pt, scenes, dev)
+    launches = main_path(mt, front, wave, ct, probe, pt, scenes, dev)
 
     if profile:
         phase("profile")
@@ -664,6 +962,7 @@ def run(profile: bool, upto: int) -> int:
     phase("7 kernel timing")
     rows = mt_timing(mt, scenes, dev, launches, errs)
     rows += front_timing(front, cases, launches, errs)
+    rows += wave_timing(wave, ct, probe, wave_cases[0], launches, errs, dev)
 
     print(json.dumps({"tracer_vs_oracle": {"exact_t_ties": ties, "rays": N_RAYS,
                                            "fallback_share": fallback_share}}))

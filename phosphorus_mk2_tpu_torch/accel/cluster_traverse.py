@@ -11,15 +11,20 @@ stages with no per-node stack:
    through superclusters of 16 (``_front_table_hierarchical``), and that
    whole two-level table is one hand-written CUDA kernel on the card
    (accel/front.py ``front_full``);
-2. the wave loop: wave w gathers, for every ray still live at its
-   column w, that cluster's (9, 128) triangle rows and runs a dense
-   Moller-Trumbore min-update (``_mt_rows``);
+2. the wave loop: wave w tests every ray still live at its column w
+   against that cluster's (9, 128) triangle rows, a dense
+   Moller-Trumbore min-update. On the card a wave is one hand-written
+   CUDA kernel (accel/wave.py ``wave_mt``: a warp per ray evaluates the
+   live gate, fetches the row and reduces the winner); on CPU tensors it
+   is the plain gather + ``_mt_rows``;
 3. the exact fallback: rays whose table did not cover their hit range
-   (table overflow, supercluster horizon) test every cluster.
+   (table overflow, supercluster horizon) test every cluster
+   (``wave_sweep``, a kernel on the card as well).
 
 Where the JAX package runs masked fixed-shape loops over rays sorted by
-overlap, this eager form compacts the live rays of a wave by boolean
-index and moves state by index. What decides a winner is kept exactly,
+overlap, the kernels meet every ray in place and leave a dead one
+untouched, and the plain versions compact the live rays by index. What
+decides a winner is kept exactly,
 because ``_mt_rows`` accepts a hit only on strict ``t < best_t``: a ray
 meets its front-table columns in ascending order; after the first
 ``recompact`` columns the remaining live columns are re-sorted by the
@@ -29,8 +34,10 @@ id. The live gate of a wave compares the (after a recompaction:
 truncated) table tnear with the ray's best t at the start of that wave.
 
 Every data-dependent trip count is a host sync here (``STATS`` counts
-them under "syncs"): one per wave for the indices of the live rays, one per
-recompaction, one for the table depth and one for the fallback.
+them under "syncs"): one per segment of waves for the table depth, one
+per recompaction for the width and one for the indices of the fallback's
+rays. The plain wave adds one per wave (the indices of the live rays);
+the kernel needs none.
 
 Correctness oracle: the brute-force tracer of accel/mt.py.
 """
@@ -38,18 +45,15 @@ from __future__ import annotations
 
 import torch
 
-from phosphorus_mk2_tpu_torch.accel import front
+from phosphorus_mk2_tpu_torch.accel import front, wave
 from phosphorus_mk2_tpu_torch.accel.bvh_builder import DENSE_CLUSTERS as DENSE_K
 from phosphorus_mk2_tpu_torch.accel.bvh_builder import SUPER_CLUSTERS as SC
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, mt_intersect
+from phosphorus_mk2_tpu_torch.accel.wave import mt_rows as _mt_rows  # noqa: F401  (its old home)
 
 MAX_FRONT = 32  # per-ray front-to-back cluster table depth; rays that
                 # overlap more clusters finish in the exact fallback
 SC_FRONT = 16   # supercluster table depth in hierarchical mode
-FB_RAYS = 2048  # most rays per step of the exact fallback
-FB_ELEMS = 1 << 24  # (ray, triangle) pairs per step of the exact fallback:
-                    # 64 MB a float32 temporary of the MT; 64 clusters a
-                    # step at FB_RAYS rays, every cluster at once for a few
 
 # traces, rays, waves, host syncs and exact-fallback rays since the caller
 # last cleared it (a profile reads it; nothing in the tracer does)
@@ -95,76 +99,7 @@ def _slab_all(p, d, bmin, bmax):
     inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
     tn, tf = _slab_interval(p, inv, bmin[None], bmax[None])
     hit = (tn <= tf) & (tf >= 0.0)
-    return hit, torch.maximum(tn, torch.zeros((), dtype=tn.dtype, device=tn.device))
-
-
-def _mt_rows(p, d, rows, best, live, cand_cids=None, cand_base=None):
-    """Dense per-ray MT against each ray's own cluster row(s).
-
-    p, d: (N, 3); rows: (N, W, 9, C) float32 component rows (a|e0|e1).
-    best: (t, cid, lane), each (N,): the winner is a (cluster, lane)
-    pair, mapped to a triangle id once per trace.
-    live: (N,) ray mask or (N, W, C) candidate mask; dead rays and
-    candidates keep their records.
-    The winner's cluster id comes from exactly one of cand_cids (N, W)
-    int32, the cluster of candidate block jc, or cand_base (N,) int32,
-    when the candidates are the contiguous clusters cand_base + jc.
-    A hit is taken only on t < best_t, and among equal t the first flat
-    index (block-major, then lane) wins.
-    """
-    n, W, _, C = rows.shape
-    px, py, pz = p[:, 0, None, None], p[:, 1, None, None], p[:, 2, None, None]
-    dx, dy, dz = d[:, 0, None, None], d[:, 1, None, None], d[:, 2, None, None]
-    ax, ay, az = rows[:, :, 0], rows[:, :, 1], rows[:, :, 2]    # (N, W, C)
-    e0x, e0y, e0z = rows[:, :, 3], rows[:, :, 4], rows[:, :, 5]
-    e1x, e1y, e1z = rows[:, :, 6], rows[:, :, 7], rows[:, :, 8]
-
-    pvx = dy * e1z - dz * e1y
-    pvy = dz * e1x - dx * e1z
-    pvz = dx * e1y - dy * e1x
-    det = e0x * pvx + e0y * pvy + e0z * pvz
-    near0 = det.abs() < 1e-8
-    ood = 1.0 / torch.where(near0, 1.0, det)
-    tx = px - ax
-    ty = py - ay
-    tz = pz - az
-    u = (tx * pvx + ty * pvy + tz * pvz) * ood
-    qvx = ty * e0z - tz * e0y
-    qvy = tz * e0x - tx * e0z
-    qvz = tx * e0y - ty * e0x
-    v = (dx * qvx + dy * qvy + dz * qvz) * ood
-    t = (e1x * qvx + e1y * qvy + e1z * qvz) * ood
-
-    best_t, best_cid, best_lane = best
-    ok = (
-        ~near0
-        & (u >= 0.0)
-        & (u <= 1.0)
-        & (v >= 0.0)
-        & (u + v <= 1.0)
-        & (t >= 0.0)
-        & (t < best_t[:, None, None])
-        & (live[:, None, None] if live.dim() == 1 else live)
-    )
-    t_m = torch.where(ok, t, T_MAX).reshape(n, W * C)
-    t_new = t_m.min(dim=1).values
-    better = t_new < best_t  # t_m is already gated on t < best_t
-    # the first flat index at the minimum, by a masked-iota min
-    col = torch.arange(W * C, dtype=torch.int32, device=p.device)[None, :]
-    j = torch.where(t_m == t_new[:, None], col, 1 << 30).min(dim=1).values
-    j = torch.where(better, j, 0)
-
-    jc = j // C
-    lane_new = j % C
-    if cand_cids is not None:
-        cid_new = cand_cids.gather(1, jc[:, None].long())[:, 0]
-    else:
-        cid_new = cand_base + jc
-    return (
-        torch.where(better, t_new, best_t),
-        torch.where(better, cid_new, best_cid),
-        torch.where(better, lane_new, best_lane),
-    )
+    return hit, front.clamp0(tn)
 
 
 def _stable_smallest(vals, k):
@@ -225,7 +160,6 @@ def _expand_members(pp, dd, mbmin, mbmax, ptbl, p_ttbl, t_limit, expand_batch=1)
     pad = G * B - jj
     sct = torch.nn.functional.pad(ptbl, (0, pad))
     live_col = torch.nn.functional.pad(p_ttbl < T_MAX, (0, pad))
-    zero = torch.zeros((), dtype=torch.float32, device=pp.device)
     outs = []
     for g in range(G):
         sc_b = sct[:, g * B : (g + 1) * B]
@@ -233,7 +167,7 @@ def _expand_members(pp, dd, mbmin, mbmax, ptbl, p_ttbl, t_limit, expand_batch=1)
         pid = torch.where(live, sc_b, 0).long()
         tn, tf = _slab_interval(pp, inv, mbmin[pid], mbmax[pid])  # (N, B, SC)
         hit = (tn <= tf) & (tf >= 0.0) & live[:, :, None] & (tn < t_limit[:, None, None])
-        outs.append(torch.where(hit, torch.maximum(tn, zero), T_MAX).reshape(n, B * sc))
+        outs.append(torch.where(hit, front.clamp0(tn), T_MAX).reshape(n, B * sc))
     return torch.cat(outs, dim=1), sct
 
 
@@ -305,12 +239,14 @@ def _trace(scene, p, d, t_limit, any_hit,
     Tunables (none changes a winner, but for exact-t ties under
     ``recompact``, see below):
     dense_waves: the first W0 front-table columns are evaluated for ALL
-      rays in one masked gather per ``dense_chunk`` rays, before the
-      per-wave loop.
-    chunk: most live rays per gather + MT step of the wave loop (bounds
-      the (rays, 9, 128) row gather and the MT temporaries). The default
-      takes a whole wavefront of 1 << 17 rays in one step: 604 MB of rows
-      and about as much again in MT temporaries.
+      rays in one step (each against the ray's best t at its start),
+      before the per-wave loop.
+    chunk, dense_chunk: most live rays per gather + MT step of the plain
+      wave and of the plain dense head (they bound the (rays, W, 9, 128)
+      row gather and the MT temporaries; the kernel has neither and
+      takes no chunk). The default takes a whole wavefront of 1 << 17
+      rays in one step: 604 MB of rows and about as much again in MT
+      temporaries.
     expand_batch: parents expanded per step of the plain member
       expansion.
     sc_topk: how the hierarchical front table is made, see
@@ -318,10 +254,10 @@ def _trace(scene, p, d, t_limit, any_hit,
     front_k: override MAX_FRONT (per-ray table depth). sc_front: override
       SC_FRONT (supercluster table depth jj). The exact fallback covers
       what a shallower table misses.
-    fb_cc: clusters per step of the exact fallback; 0 = as many as
-      FB_ELEMS pairs allow for the needy rays at hand (a handful of rays
-      then meets all K clusters in one step instead of K / 64 steps of
-      ~90 launches each).
+    fb_cc: clusters per step of the plain exact fallback; 0 = as many as
+      wave.FB_ELEMS pairs allow for the needy rays at hand (a handful of
+      rays then meets all K clusters in one step instead of K / 64 steps
+      of ~90 launches each). The kernel sweeps all K in one launch.
     recompact: every ``recompact`` waves, drop the columns the early-out
       has already ended (tn >= best_t) and left-pack the survivors by a
       packed-key row sort, cluster id in the tn mantissa. 0 = off. The
@@ -331,8 +267,9 @@ def _trace(scene, p, d, t_limit, any_hit,
     dense_k: override DENSE_K, the cluster count above which the
       supercluster front table is used (lets small scenes take the
       hierarchical path).
-    plain: take the plain versions of the front-table kernels on any
-      device (to hold a whole trace against the kernels on the card).
+    plain: take the plain versions of the front-table and wave kernels
+      on any device (to hold a whole trace against the kernels on the
+      card).
     slab_bf16, rows_bf16, wave_dedup, front_levels=3 are not ported.
     """
     for name, value in later.items():
@@ -344,7 +281,7 @@ def _trace(scene, p, d, t_limit, any_hit,
             )
     bvh = scene.bvh
     rows_tbl = _cluster_rows(scene)
-    K, _, C = rows_tbl.shape
+    K = rows_tbl.shape[0]
     n = p.shape[0]
     dev = p.device
     pp = p.detach().contiguous()
@@ -370,53 +307,38 @@ def _trace(scene, p, d, t_limit, any_hit,
         ttbl, ctbl, _ = _front_table_dense(pp, dd, bvh, t_limit, kk)
         kth_tn = ttbl[:, -1]
 
-    def gate(col_t, sel=slice(None)):
-        """Live entries of table columns col_t, (m,) or (m, w), of the rays
-        ``sel``: nearer than the ray's best t and pending."""
-        bt, bc = best_t[sel], best_c[sel]
-        if col_t.dim() == 2:
-            bt, bc = bt[:, None], bc[:, None]
-        live = (col_t < bt) & (col_t < T_MAX)
-        return live & (bc < 0) if any_hit else live
+    # the kernels of accel/wave.py for CUDA tensors, their plain versions
+    # for CPU tensors or when the caller asks for them
+    use_plain = plain or not pp.is_cuda
+    state = (best_t, best_c, best_l)  # updated in place from here on
 
-    def update(idx, new):
-        best_t[idx], best_c[idx], best_l[idx] = new
+    def mt_step(col_t, col_c, step):
+        """Front-table columns col_t / col_c (n, w) for every ray: the
+        live entries are tested against the ray's best t at the call. The
+        plain version compacts the live rays by index, ``step`` at a time,
+        which is a host sync; the kernel gates each ray itself."""
+        if use_plain:
+            wave.wave_mt_plain(pp, dd, rows_tbl, col_t, col_c, any_hit, *state, chunk=step)
+            STATS["syncs"] += 1
+        else:
+            wave.wave_mt(pp, dd, rows_tbl, col_t, col_c, any_hit, *state)
 
-    # --- dense head: columns [0, W0) for every ray, one masked gather
+    # --- dense head: columns [0, W0) of every ray in one step
     W0 = min(dense_waves, kk) if dense_waves else 0
     if W0 > 0:
-        for r0 in range(0, n, dense_chunk):
-            s = slice(r0, min(r0 + dense_chunk, n))
-            c = ctbl[s, :W0]
-            live = gate(ttbl[s, :W0], s)
-            rows = rows_tbl[torch.where(live, c, 0).long()]  # (ch, W0, 9, C)
-            new = _mt_rows(pp[s], dd[s], rows, (best_t[s], best_c[s], best_l[s]),
-                           live[:, :, None].expand(-1, -1, C), cand_cids=c)
-            update(s, new)
-
-    def wave(col_t, col_c):
-        """One front-table column: the rays live at it, compacted."""
-        idx = gate(col_t).nonzero()[:, 0]
-        STATS["syncs"] += 1
-        STATS["waves"] += 1
-        for i0 in range(0, idx.shape[0], chunk):
-            sel = idx[i0 : i0 + chunk]
-            c = col_c[sel]
-            rows = rows_tbl[c.long()][:, None]  # (m, 1, 9, C)
-            new = _mt_rows(pp[sel], dd[sel], rows,
-                           (best_t[sel], best_c[sel], best_l[sel]),
-                           torch.ones_like(sel, dtype=torch.bool), cand_cids=c[:, None])
-            update(sel, new)
+        mt_step(ttbl[:, :W0], ctbl[:, :W0], dense_chunk)
 
     def run_waves(tbl_t, tbl_c, w0, ncols):
         """Columns [w0, ncols) of a table whose pending entries are
-        left-packed: stops at the deepest column any ray has."""
+        left-packed, one wave each: stops at the deepest column any ray
+        has."""
         if w0 >= ncols:
             return
         depth = int((tbl_t[:, w0:ncols] < T_MAX).sum(dim=1).max())
         STATS["syncs"] += 1
         for w in range(w0, w0 + depth):
-            wave(tbl_t[:, w], tbl_c[:, w])
+            mt_step(tbl_t[:, w : w + 1], tbl_c[:, w : w + 1], chunk)
+            STATS["waves"] += 1
 
     if recompact and 0 < recompact < kk - W0:
         seg = min(W0 + recompact, kk)
@@ -424,7 +346,7 @@ def _trace(scene, p, d, t_limit, any_hit,
         tbl_t, tbl_c = ttbl[:, seg:], ctbl[:, seg:]
         nbits = front.key_bits(K)
         while tbl_t.shape[1] > 0:
-            live = gate(tbl_t)
+            live = wave.live_columns(tbl_t, best_t, best_c, any_hit)
             width = int(live.sum(dim=1).max())
             STATS["syncs"] += 1
             if width == 0:
@@ -432,10 +354,8 @@ def _trace(scene, p, d, t_limit, any_hit,
             # the cluster id rides in the tn mantissa: truncation only
             # LOWERS tn (keys clamped non-negative), permissive for the
             # live gate; the MT stays exact
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
             packed = torch.where(
-                live, front.pack_keys(torch.maximum(tbl_t, zero), nbits, tbl_c),
-                front.DEAD_KEY,
+                live, front.pack_keys(front.clamp0(tbl_t), nbits, tbl_c), front.DEAD_KEY
             )
             packed = torch.sort(packed, dim=1).values[:, :width]  # left-pack
             tbl_t, tbl_c = front.decode_keys(packed, nbits)
@@ -446,26 +366,18 @@ def _trace(scene, p, d, t_limit, any_hit,
         run_waves(ttbl, ctbl, W0, kk)
 
     # --- exact fallback for rays whose front table did not cover their
-    # hit range: every cluster, ascending, for the needy rays only
+    # hit range: every cluster for the needy rays only
     needy = kth_tn < best_t
     if any_hit:
         needy = needy & (best_c < 0)
-    idx = needy.nonzero()[:, 0]
+    idx = needy.nonzero()[:, 0].int()
     STATS["syncs"] += 1
     STATS["fallback_rays"] += idx.shape[0]
-    for i0 in range(0, idx.shape[0], FB_RAYS):
-        sel = idx[i0 : i0 + FB_RAYS]
-        m = sel.shape[0]
-        CC = min(fb_cc or max(1, FB_ELEMS // (m * C)), K)
-        rp, rd = pp[sel], dd[sel]
-        cur = (best_t[sel], best_c[sel], best_l[sel])
-        live = torch.ones((m,), dtype=torch.bool, device=dev)
-        for k in range(-(-K // CC)):
-            cstart = min(k * CC, K - CC)  # the last block overlaps the one before
-            rows = rows_tbl[cstart : cstart + CC][None].expand(m, -1, -1, -1)
-            base = torch.full((m,), cstart, dtype=torch.int32, device=dev)
-            cur = _mt_rows(rp, rd, rows, cur, live, cand_base=base)
-        update(sel, cur)
+    if idx.shape[0] > 0:
+        if use_plain:
+            wave.wave_sweep_plain(pp, dd, rows_tbl, idx, *state, fb_cc=fb_cc)
+        else:
+            wave.wave_sweep(pp, dd, rows_tbl, idx, *state)
     return best_t, best_c, best_l
 
 

@@ -93,6 +93,15 @@ def tmax_key(nbits: int) -> int:
     return _T_MAX_BITS & -(1 << nbits)
 
 
+def clamp0(t):
+    """max(t, 0) whose zero is +0.0: ``torch.maximum`` may keep the sign
+    of a -0.0 (a ray origin on the plane of a flat box, direction away),
+    and the bits of -0.0 are a NEGATIVE int32 key that sorts before every
+    +0.0 key whatever its column. -0.0 + 0.0 is +0.0; any other value,
+    NaN included, passes the sum unchanged."""
+    return torch.maximum(t, torch.zeros((), dtype=t.dtype, device=t.device)) + 0.0
+
+
 def pack_keys(t, nbits: int, ids=None):
     """(float bits of t & mask) | id, as int32. t (..., M) non-negative
     float32; ids default to the column index."""
@@ -170,8 +179,7 @@ def _parents_plain(sc_bmin, sc_bmax, p, d, t_limit, jj, nbits_p):
     the reciprocal directions for stage 3."""
     inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
     tn, tf = _slab(sc_bmin[None], sc_bmax[None], p, inv)
-    zero = torch.zeros((), dtype=torch.float32, device=p.device)
-    tnc = torch.maximum(tn, zero)  # the clamp comes BEFORE the limit test
+    tnc = clamp0(tn)  # the clamp comes BEFORE the limit test
     pending = (tn <= tf) & (tf >= 0.0) & (tnc < t_limit[:, None])
     keys = pack_keys(torch.where(pending, tnc, T_MAX), nbits_p)
     outs = []
@@ -205,7 +213,6 @@ def front_full_plain(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj: int):
     n = p.shape[0]
     out_p = torch.empty((n, jj), dtype=torch.int32, device=p.device)
     out_c = torch.empty((n, jj * sc), dtype=torch.int32, device=p.device)
-    zero = torch.zeros((), dtype=torch.float32, device=p.device)
     for r0 in range(0, n, RAY_CHUNK):
         s = slice(r0, r0 + RAY_CHUNK)
         pk, inv = _parents_plain(sc_bmin, sc_bmax, p[s], d[s], t_limit[s], jj, nbits_p)
@@ -216,7 +223,7 @@ def front_full_plain(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj: int):
         # the RAW tn meets the limit here; the clamp comes AFTER
         hit = ((tn <= tf) & (tf >= 0.0) & valid[:, :, None]
                & (tn < t_limit[s][:, None, None]) & (tn < 1e37))
-        cand = torch.where(hit, torch.maximum(tn, zero), T_MAX)
+        cand = torch.where(hit, clamp0(tn), T_MAX)
         out_c[s] = pack_keys(cand.reshape(-1, jj * sc), nbits_c)
     return out_p, out_c
 

@@ -15,7 +15,7 @@
 //   stage 1  inv = 1 / (d == 0 ? 1e-30 : d) per axis; per box
 //            t0 = (bmin - p) * inv, t1 = (bmax - p) * inv,
 //            tn = max(-3.4e38, min(t0, t1) ...), tf = min(3.4e38,
-//            max(t0, t1) ...); tnc = max(tn, 0);
+//            max(t0, t1) ...); tnc = max(tn, 0), its zero always +0.0;
 //            pending = tn <= tf && tf >= 0 && tnc < tlim (the clamp comes
 //            BEFORE the limit test here); key value tnc or 3.4e38.
 //   stage 2  packed key = (float bits & -(1 << nbits_p)) | column, an
@@ -80,6 +80,12 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
+// max(t, 0) that keeps a NaN and gives +0.0 for -0.0: the bits of -0.0
+// would be a negative key that sorts before every +0.0 key.
+__device__ __forceinline__ float clamp0(float t) {
+  return (t != t) ? t : ((t > 0.0f) ? t : 0.0f);
+}
+
 // One axis of a slab test folded into the running interval [tn, tf].
 __device__ __forceinline__ void slab_axis(float bmin, float bmax, float p,
                                           float inv, float& tn, float& tf) {
@@ -138,7 +144,7 @@ front_kernel(const float* __restrict__ sc_bmin, const float* __restrict__ sc_bma
       slab_axis(sb[k], sb[3 * k2 + k], px, ix, tn, tf);
       slab_axis(sb[k2 + k], sb[4 * k2 + k], py, iy, tn, tf);
       slab_axis(sb[2 * k2 + k], sb[5 * k2 + k], pz, iz, tn, tf);
-      const float tnc = nan_max(tn, 0.0f);
+      const float tnc = clamp0(tn);
       const bool pending = (tn <= tf) && (tf >= 0.0f) && (tnc < tl);
       const int key = (__float_as_int(pending ? tnc : T_MAX) & mask_p) | k;
       keys[k] = key;
@@ -174,7 +180,7 @@ front_kernel(const float* __restrict__ sc_bmin, const float* __restrict__ sc_bma
           slab_axis(mb_min[row + 1], mb_max[row + 1], py, iy, tn, tf);
           slab_axis(mb_min[row + 2], mb_max[row + 2], pz, iz, tn, tf);
           const bool hit = (tn <= tf) && (tf >= 0.0f) && (tn < tl) && (tn < 1e37f);
-          if (hit) cand = nan_max(tn, 0.0f);
+          if (hit) cand = clamp0(tn);
         }
         out_c[static_cast<size_t>(ray) * width + c] = (__float_as_int(cand) & mask_c) | c;
       }

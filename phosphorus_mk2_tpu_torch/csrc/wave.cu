@@ -1,0 +1,417 @@
+// Wave-loop kernels of the cluster tracer for Hopper (sm_90a).
+//
+// row_gather replaces the Pallas TPU kernel of tools/tpu_r4q_dma.py:46
+// (called at :103): R row copies out of a (K, 9, 128) float32 table by an
+// index vector, inside one kernel, in two variants. That kernel was a
+// probe: it asked what it costs a kernel to fetch each ray's own cluster
+// row itself, which decides whether the body of a wave can be one kernel
+// that never writes the gathered rows out. Here the answer is put to
+// work: wave_mt and wave_sweep are that fused body, and the row fetch
+// they run (fetch_row below) is the routine row_gather times.
+//
+//   row_gather  out[i] = table[idx[i]], bit for bit. "direct": one warp
+//               per row, 36 coalesced 128-byte loads into registers, 36
+//               stores. "staged": a warp walks several rows through a
+//               ring of NBUF shared-memory slots; one lane starts each
+//               row's copy as a single bulk asynchronous copy
+//               (cp.async.bulk) that reports to an mbarrier, NBUF copies
+//               ahead, and the warp reads the slot with the same
+//               fetch_row once the barrier's phase has flipped. These are
+//               the probe's "serial" (fetch, then use) and "pipe" (NBUF
+//               copies in flight) in this card's terms. The probe kept a
+//               checksum; here the rows are written out so that the
+//               result can be compared with plain indexing.
+//   wave_mt     the body of one wave of the tracer (the JAX package's
+//               cluster_traverse.py chunk_fn: live gate, row gather,
+//               _mt_rows, masked state update), which has no Pallas kernel
+//               behind it. One warp per ray. The warp reads the ray's
+//               best t ONCE, tests each of its W table columns (live:
+//               tnear < best_t, tnear < T_MAX and, for an any-hit trace,
+//               no hit yet), and leaves at once when none is live: the
+//               host needs no list of live rays. For a live column it
+//               fetches that cluster's row; lane l tests triangles l,
+//               l + 32, l + 64, l + 96 with the Moller-Trumbore
+//               arithmetic of csrc/mt.cu in the same order of operations
+//               and accepts a hit only on t < best_t. The warp's winner is
+//               the minimum t and, among equal t, the lowest flat index
+//               w * 128 + triangle: two integer warp reductions
+//               (t >= 0, so its float bits order as integers). Lane 0
+//               writes (t, cluster, triangle) over the ray's state.
+//   wave_sweep  the exact fallback: for each of m listed rays, every
+//               cluster of the table. The plain version walks the
+//               clusters in ascending blocks and carries a strict
+//               t < best_t from block to block, so its winner is the
+//               candidate with the least (t, cluster * 128 + triangle) in
+//               lexicographic order among those with t below the ray's
+//               starting best t: a later candidate replaces an earlier one
+//               only if strictly nearer, and re-testing a block (the last
+//               one overlaps the one before) changes nothing. That
+//               minimum does not depend on the order of evaluation, so
+//               the cluster range of a ray is cut over several blocks,
+//               each warp reduces its share to one 64-bit key
+//               (t bits << 32 | flat index) and the shares meet in an
+//               atomicMin; a second small kernel writes the winners into
+//               the state.
+//
+// What bounds them on an H100: bytes. A (ray, cluster) pair reads a
+// 4,608-byte row and does 128 tests of ~46 operations: 1.3 operations a
+// byte, far below the card's ~20 FP32 operations a byte. The rows of one
+// wave are scattered over the table, but each is 36 full 128-byte lines,
+// so the fetch is as coalesced as a row-major copy; a table of tens of
+// megabytes (26.7 MB for 5,803 clusters) stays in the 50 MB L2 after its
+// first touch.
+//
+// Exactness: compiled with --fmad=false and IEEE division, no fast
+// math, so t equals the plain PyTorch version's bit for bit. A winning t
+// of -0.0 is stored as +0.0 (the integer order of the reduction needs
+// it; as floats the two are equal), and the plain mt_rows does the same.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int C = 128;                 // triangles of a cluster row
+constexpr int COMPS = 9;               // a xyz, e0 xyz, e1 xyz
+constexpr int ROW = COMPS * C;         // floats of a row
+constexpr int ROW_BYTES = ROW * 4;     // 4,608
+constexpr int PER_LANE = C / 32;       // triangles a lane owns
+constexpr float T_MAX = 3.4e38f;
+constexpr float DET_EPS = 1e-8f;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+constexpr int GATHER_WARPS = 8;        // row_gather direct: rows per block
+constexpr int STAGED_WARPS = 4;        // row_gather staged: warps per block
+constexpr int NBUF = 4;                // ring slots (copies in flight) per warp
+constexpr int STAGED_ROWS = 8;         // rows a warp walks through its ring
+constexpr int MT_WARPS = 8;            // wave_mt: rays per block
+constexpr int SWEEP_WARPS = 8;         // wave_sweep: warps per block
+constexpr int SWEEP_BLOCKS = 1056;     // wave_sweep: blocks aimed at (8 per SM)
+
+// The row fetch: lane l takes, of each of the 9 component rows, columns
+// l, l + 32, l + 64 and l + 96, so every load of the warp is one
+// 128-byte line. `row` points at a row in device memory or at a staged
+// copy of one in shared memory.
+__device__ __forceinline__ void fetch_row(const float* row, int lane,
+                                          float (&v)[COMPS][PER_LANE]) {
+#pragma unroll
+  for (int r = 0; r < COMPS; ++r) {
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) v[r][i] = row[r * C + i * 32 + lane];
+  }
+}
+
+__device__ __forceinline__ void store_row(float* row, int lane,
+                                          const float (&v)[COMPS][PER_LANE]) {
+#pragma unroll
+  for (int r = 0; r < COMPS; ++r) {
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) row[r * C + i * 32 + lane] = v[r][i];
+  }
+}
+
+// Moller-Trumbore of one ray against triangle i of a lane's fetched row;
+// the arithmetic of csrc/mt.cu mt_test and of the plain mt_rows, in
+// their order. Returns the validity of the hit; t is always written.
+__device__ __forceinline__ bool mt_test(const float (&v)[COMPS][PER_LANE], int i,
+                                        float px, float py, float pz,
+                                        float dx, float dy, float dz, float& t) {
+  const float ax = v[0][i], ay = v[1][i], az = v[2][i];
+  const float e0x = v[3][i], e0y = v[4][i], e0z = v[5][i];
+  const float e1x = v[6][i], e1y = v[7][i], e1z = v[8][i];
+  const float pvx = dy * e1z - dz * e1y;
+  const float pvy = dz * e1x - dx * e1z;
+  const float pvz = dx * e1y - dy * e1x;
+  const float det = e0x * pvx + e0y * pvy + e0z * pvz;
+  const bool near0 = fabsf(det) < DET_EPS;
+  const float ood = 1.0f / (near0 ? 1.0f : det);
+  const float tx = px - ax;
+  const float ty = py - ay;
+  const float tz = pz - az;
+  const float u = (tx * pvx + ty * pvy + tz * pvz) * ood;
+  const float qvx = ty * e0z - tz * e0y;
+  const float qvy = tz * e0x - tx * e0z;
+  const float qvz = tx * e0y - ty * e0x;
+  const float vv = (dx * qvx + dy * qvy + dz * qvz) * ood;
+  t = (e1x * qvx + e1y * qvy + e1z * qvz) * ood;
+  return !near0 && u >= 0.0f && u <= 1.0f && vv >= 0.0f && u + vv <= 1.0f &&
+         t >= 0.0f;
+}
+
+// A lane's running winner over the triangles it meets in ascending flat
+// index: a hit is taken only when strictly nearer than the ray's best t
+// at entry and than the lane's own, so the lane keeps its first minimum.
+struct LaneBest {
+  float t = T_MAX;
+  int flat = INT_MAX;
+};
+
+__device__ __forceinline__ void test_row(const float (&v)[COMPS][PER_LANE], int lane,
+                                         int flat_base, float px, float py, float pz,
+                                         float dx, float dy, float dz, float bt,
+                                         LaneBest& best) {
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    float t;
+    if (mt_test(v, i, px, py, pz, dx, dy, dz, t) && t < bt && t < best.t) {
+      best.t = (t == 0.0f) ? 0.0f : t;  // -0.0 -> +0.0
+      best.flat = flat_base + i * 32 + lane;
+    }
+  }
+}
+
+// The warp's winner: the minimum t and, among equal t, the lowest flat
+// index. t is non-negative, so its bits order as integers. Returns the
+// bits of T_MAX when no lane holds a hit.
+__device__ __forceinline__ int warp_winner(const LaneBest& best, int& flat) {
+  const int tb = __float_as_int(best.t);
+  const int mb = __reduce_min_sync(FULL, tb);
+  flat = __reduce_min_sync(FULL, tb == mb ? best.flat : INT_MAX);
+  return mb;
+}
+
+// ---------------------------------------------------------------------------
+// row_gather
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(GATHER_WARPS * 32)
+row_gather_direct_kernel(const int* __restrict__ idx, const float* __restrict__ table,
+                         int r, float* __restrict__ out) {
+  const int row = blockIdx.x * GATHER_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= r) return;
+  float v[COMPS][PER_LANE];
+  fetch_row(table + static_cast<size_t>(idx[row]) * ROW, lane, v);
+  store_row(out + static_cast<size_t>(row) * ROW, lane, v);
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// Start the copy of one row into a ring slot: the barrier is told how
+// many bytes to expect, then one bulk copy is started that reports to it.
+__device__ __forceinline__ void stage_row(float* slot, const float* src, uint64_t* bar) {
+  const uint32_t bar_a = shared_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar_a), "r"(ROW_BYTES) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(shared_addr(slot)), "l"(src), "r"(ROW_BYTES), "r"(bar_a) : "memory");
+}
+
+__device__ __forceinline__ void wait_row(uint64_t* bar, uint32_t parity) {
+  const uint32_t bar_a = shared_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar_a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Dynamic shared memory: per warp NBUF row slots, then per warp NBUF
+// barriers. A warp owns rows [first, first + count) and never meets the
+// block's other warps.
+__global__ void __launch_bounds__(STAGED_WARPS * 32)
+row_gather_staged_kernel(const int* __restrict__ idx, const float* __restrict__ table,
+                         int r, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* ring = reinterpret_cast<float*>(smem) + warp * NBUF * ROW;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + STAGED_WARPS * NBUF * ROW_BYTES) + warp * NBUF;
+  const int first = (blockIdx.x * STAGED_WARPS + warp) * STAGED_ROWS;
+  const int count = min(STAGED_ROWS, r - first);
+  if (count <= 0) return;
+  if (lane == 0) {
+    for (int s = 0; s < NBUF; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   :: "r"(shared_addr(bars + s)), "r"(1) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < min(NBUF, count); ++i) {
+      stage_row(ring + i * ROW, table + static_cast<size_t>(idx[first + i]) * ROW, bars + i);
+    }
+  }
+  __syncwarp();
+  for (int i = 0; i < count; ++i) {
+    const int s = i % NBUF;
+    wait_row(bars + s, (i / NBUF) & 1);
+    float v[COMPS][PER_LANE];
+    fetch_row(ring + s * ROW, lane, v);
+    store_row(out + static_cast<size_t>(first + i) * ROW, lane, v);
+    __syncwarp();  // every lane has read the slot: it may be filled again
+    if (lane == 0 && i + NBUF < count) {
+      stage_row(ring + s * ROW, table + static_cast<size_t>(idx[first + i + NBUF]) * ROW,
+                bars + s);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wave_mt
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(MT_WARPS * 32)
+wave_mt_kernel(const float* __restrict__ p, const float* __restrict__ d,
+               const float* __restrict__ table, int k,
+               const float* __restrict__ col_t, const int* __restrict__ col_c,
+               long long stride_t, long long stride_c, int w, int any_hit, int n,
+               float* best_t, int* best_c, int* best_l) {
+  const int ray = blockIdx.x * MT_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (ray >= n) return;  // uniform over the warp, as is every branch below
+  const float bt = best_t[ray];  // read once: every column meets this value
+  if (any_hit && best_c[ray] >= 0) return;
+  const float* ct = col_t + static_cast<size_t>(ray) * stride_t;
+  const int* cc = col_c + static_cast<size_t>(ray) * stride_c;
+  float px = 0.f, py = 0.f, pz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  bool loaded = false;
+  LaneBest best;
+  for (int j = 0; j < w; ++j) {
+    const float tn = ct[j];
+    if (!(tn < bt && tn < T_MAX)) continue;
+    // the id of a dead column is arbitrary; one of a live column lies in
+    // [0, k), and nothing else is ever used as an address
+    const int cid = cc[j];
+    if (cid < 0 || cid >= k) continue;
+    if (!loaded) {
+      px = p[3 * ray], py = p[3 * ray + 1], pz = p[3 * ray + 2];
+      dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
+      loaded = true;
+    }
+    float v[COMPS][PER_LANE];
+    fetch_row(table + static_cast<size_t>(cid) * ROW, lane, v);
+    test_row(v, lane, j * C, px, py, pz, dx, dy, dz, bt, best);
+  }
+  if (!loaded) return;
+  int flat;
+  const int mb = warp_winner(best, flat);
+  if (!(__int_as_float(mb) < bt)) return;
+  if (lane == 0) {
+    best_t[ray] = __int_as_float(mb);
+    best_c[ray] = cc[flat / C];
+    best_l[ray] = flat % C;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wave_sweep
+// ---------------------------------------------------------------------------
+
+// Block b works on listed ray b / splits and on clusters
+// [(b % splits) * per_block, ...); its warps take those clusters in turn.
+__global__ void __launch_bounds__(SWEEP_WARPS * 32)
+wave_sweep_kernel(const float* __restrict__ p, const float* __restrict__ d,
+                  const float* __restrict__ table, int k,
+                  const int* __restrict__ idx, int splits, int per_block,
+                  const float* __restrict__ best_t, unsigned long long* keys) {
+  const int j = blockIdx.x / splits;
+  const int c0 = (blockIdx.x % splits) * per_block;
+  const int c1 = min(k, c0 + per_block);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ray = idx[j];
+  const float bt = best_t[ray];
+  const float px = p[3 * ray], py = p[3 * ray + 1], pz = p[3 * ray + 2];
+  const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
+  LaneBest best;
+  for (int c = c0 + warp; c < c1; c += SWEEP_WARPS) {
+    float v[COMPS][PER_LANE];
+    fetch_row(table + static_cast<size_t>(c) * ROW, lane, v);
+    test_row(v, lane, c * C, px, py, pz, dx, dy, dz, bt, best);
+  }
+  int flat;
+  const int mb = warp_winner(best, flat);
+  if (lane == 0 && flat != INT_MAX) {
+    const unsigned long long key =
+        (static_cast<unsigned long long>(static_cast<unsigned>(mb)) << 32) |
+        static_cast<unsigned>(flat);
+    atomicMin(keys + j, key);
+  }
+}
+
+// Every key that was written beats the ray's state (its t was below the
+// best t at entry): unpack it over the state.
+__global__ void wave_sweep_write_kernel(const int* __restrict__ idx, int m,
+                                        const unsigned long long* __restrict__ keys,
+                                        float* best_t, int* best_c, int* best_l) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  const unsigned long long key = keys[j];
+  if (key == ~0ull) return;
+  const int ray = idx[j];
+  const int flat = static_cast<int>(key & 0xFFFFFFFFull);
+  best_t[ray] = __int_as_float(static_cast<int>(key >> 32));
+  best_c[ray] = flat / C;
+  best_l[ray] = flat % C;
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes. Each launches on the given stream and
+// returns the CUDA error code (0 = launched). Counts are > 0.
+
+// idx (r,) int32 in [0, K); table (K, 9, 128) float32 contiguous and
+// 16-byte aligned; out (r, 9, 128). staged != 0 takes the ring variant.
+extern "C" int row_gather_launch(const int* idx, const float* table, int r, float* out,
+                                 int staged, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (staged) {
+    const int shared = STAGED_WARPS * NBUF * (ROW_BYTES + 8);
+    const cudaError_t e = cudaFuncSetAttribute(
+        row_gather_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int per_block = STAGED_WARPS * STAGED_ROWS;
+    row_gather_staged_kernel<<<(r + per_block - 1) / per_block, STAGED_WARPS * 32, shared, s>>>(
+        idx, table, r, out);
+  } else {
+    row_gather_direct_kernel<<<(r + GATHER_WARPS - 1) / GATHER_WARPS, GATHER_WARPS * 32, 0, s>>>(
+        idx, table, r, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// p, d (n, 3); table (k, 9, 128); col_t, col_c: w columns of n rows with
+// unit column stride and the given row strides (in elements); best_t,
+// best_c, best_l (n,), updated in place.
+extern "C" int wave_mt_launch(const float* p, const float* d, const float* table, int k,
+                              const float* col_t, const int* col_c, long long stride_t,
+                              long long stride_c, int w, int any_hit, int n, float* best_t,
+                              int* best_c, int* best_l, void* stream) {
+  wave_mt_kernel<<<(n + MT_WARPS - 1) / MT_WARPS, MT_WARPS * 32, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      p, d, table, k, col_t, col_c, stride_t, stride_c, w, any_hit, n, best_t, best_c, best_l);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// idx (m,) int32 rays to sweep; keys (m,) 64-bit scratch; the state as
+// in wave_mt. k * 128 must fit an int32.
+extern "C" int wave_sweep_launch(const float* p, const float* d, const float* table, int k,
+                                 const int* idx, int m, float* best_t, int* best_c,
+                                 int* best_l, unsigned long long* keys, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemsetAsync(keys, 0xFF, static_cast<size_t>(m) * 8, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // cut each ray's clusters over enough blocks to fill the card
+  int splits = (SWEEP_BLOCKS + m - 1) / m;
+  const int most = (k + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  splits = splits < 1 ? 1 : (splits > most ? most : splits);
+  const int per_block = (k + splits - 1) / splits;
+  splits = (k + per_block - 1) / per_block;
+  wave_sweep_kernel<<<static_cast<unsigned>(m) * splits, SWEEP_WARPS * 32, 0, s>>>(
+      p, d, table, k, idx, splits, per_block, best_t, keys);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return static_cast<int>(e2);
+  wave_sweep_write_kernel<<<(m + 127) / 128, 128, 0, s>>>(idx, m, keys, best_t, best_c, best_l);
+  return static_cast<int>(cudaGetLastError());
+}

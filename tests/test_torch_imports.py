@@ -75,10 +75,10 @@ def test_entry_points_refuse_cuda_without_a_card():
 def test_the_new_modules_are_walked():
     mods = _modules()
     for name in ("accel.bvh_builder", "accel.native_bvh", "accel.cluster_traverse",
-                 "accel.front", "accel.build"):
+                 "accel.front", "accel.build", "accel.wave", "tools.row_gather_probe"):
         assert f"phosphorus_mk2_tpu_torch.{name}" in mods, name
     sources = {p.name for p in (PACKAGE / "csrc").iterdir()}
-    assert {"mt.cu", "front.cu", "bvh_builder.cpp"} <= sources
+    assert {"mt.cu", "front.cu", "wave.cu", "bvh_builder.cpp"} <= sources
 
 
 def test_default_options_render_a_scene_above_1024_triangles():
@@ -101,12 +101,13 @@ def test_default_options_render_a_scene_above_1024_triangles():
 def test_kernels_are_never_built_at_import():
     """Importing the port compiles nothing: there is no nvcc where the
     tests run, and the libraries are built at first use on the card."""
-    from phosphorus_mk2_tpu_torch.accel import front, mt
+    from phosphorus_mk2_tpu_torch.accel import front, mt, wave
 
-    assert front._lib is None and mt._lib is None
+    assert front._lib is None and mt._lib is None and wave._lib is None
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            front.build()
+        for mod in (front, wave):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                mod.build()
 
 
 def test_tf32_is_off():
