@@ -10,11 +10,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: csrc/mt.cu, csrc/front.cu and csrc/wave.cu with nvcc and the
      native BVH builder csrc/bvh_builder.cpp with g++, all started
-     together;
+     together; the ptxas report, and the instructions of the MT kernels'
+     inner loops as compiled (cuobjdump -sass);
   3. kernel parity on the card, each kernel against its plain PyTorch
      version on 65,536 seeded rays: mt_closest and mt_anyhit on
-     cornell_box and multi_bsdf_scene (t and tri equal, u and v within
-     1e-6, occlusion equal); front_full and front_slab_extract on the
+     cornell_box and multi_bsdf_scene, also on 1 and 31 rays, on 262,144
+     (multi_bsdf_scene) and on 4,096 that start on a cornell_box triangle
+     (a winning -0.0 is stored as +0.0), each walking the table's live
+     columns as the brute tracer does, and on 65,536 rays also the whole
+     table: t and tri equal to the bit, u
+     and v within 1e-6, occlusion equal; front_full and front_slab_extract on the
      tables of the full-size terrain_scene and of multi_bsdf_scene, both
      with NaN rows, t_limit mixed (T_MAX, short, 0): every packed key
      equal bit for bit; row_gather (direct and staged) against indexing
@@ -48,7 +53,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (front and wave kernels against plain=True), films equal to rtol
      1e-5;
   7. kernel timing with CUDA events, beside each kernel's bound and its
-     plain version's time: the MT and front kernels at 65,536 rays;
+     plain version's time: the MT kernels at 65,536 rays on both scenes
+     and 262,144 on multi_bsdf_scene, beside the issue floor (the inner
+     loop's instructions a test x tests / 32 over 4 warp-instructions a
+     clock on every SM, at the SM clock nvidia-smi reads under load),
+     both counting the tests over the columns that hold a triangle;
+     the front kernels at 65,536 rays;
      row_gather at the probe's geometry (both variants, also as ns per
      row and GB/s, beside index_select); wave_mt on the terrain's first
      and eighth wave of 65,536 rays; wave_sweep at 8 rays x all clusters.
@@ -61,6 +71,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +82,7 @@ import numpy as np
 import torch
 
 N_RAYS = 65536
+BIG_RAYS = 262144        # the multi_bsdf_scene brute render's rays per trace
 H100_FP32_OPS = 67e12    # FP32 operations/s outside the tensor cores (H100 SXM, at 700 W)
 H100_BYTES = 3.35e12     # HBM bytes/s (H100 SXM)
 MT_OPS_PER_TEST = 46     # FP32 arithmetic of one ray-triangle test (csrc/mt.cu mt_test)
@@ -165,31 +178,67 @@ def mixed_limits(seed, n, device):
     return torch.from_numpy(t).to(device)
 
 
+def on_triangles(table, num, n, seed, dev):
+    """n rays that start at the centroid of a triangle (the table's num
+    triangles in turn), random directions. On an axis-aligned triangle the
+    test gives t = +0.0 or -0.0 by the determinant's sign, and the ray
+    wins there at t = 0."""
+    cols = torch.arange(n, device=dev) % num
+    a, e0, e1 = (table[r : r + 3, cols].T for r in (0, 3, 6))
+    return (a + (e0 + e1) / 3).contiguous(), random_rays(seed, n, dev)[1]
+
+
 def mt_parity(mt, scenes, dev):
-    """Each MT kernel against its plain version on the same card inputs.
-    Returns the largest absolute differences seen per kernel."""
+    """Each MT kernel against its plain version on the same card inputs:
+    65,536 random rays on both scenes, then 1 and 31 (a ragged tile),
+    262,144 on multi_bsdf_scene and 4,096 that start on a cornell_box
+    triangle. Each walks the table's live columns, as the brute tracer
+    does; on the 65,536 rays also the whole table, which must change
+    nothing. t and tri equal to the bit, u and v within 1e-6, occlusion
+    equal. Returns the largest absolute differences seen per kernel."""
     err = {"mt_closest": 0.0, "mt_anyhit": 0.0}
+    cases = []
     for seed, name in enumerate(("cornell_box", "multi_bsdf_scene")):
         data = getattr(scenes, name)(8, 8).build(device=dev)
         table = mt.tri_table(data)
         p, d, tmax = random_rays(seed, N_RAYS, dev)
-        t, tri, u, v = mt.mt_closest(table, p, d)
+        cases.append((name, data.num_tris, table, p, d, tmax))
+        cases.append((f"{name} whole table", data.num_tris, table, p, d, tmax))
+        for n in (1, 31):
+            cases.append((name, data.num_tris, table, p[:n].contiguous(), d[:n].contiguous(),
+                          tmax[:n].contiguous()))
+        if name == "multi_bsdf_scene":
+            cases.append((name, data.num_tris, table, *random_rays(9, BIG_RAYS, dev)))
+        else:
+            p0, d0 = on_triangles(table, data.num_tris, 4096, 8, dev)
+            cases.append((f"{name} origins on triangles", data.num_tris, table, p0, d0,
+                          random_rays(8, 4096, dev)[2]))
+    for name, num_tris, table, p, d, tmax in cases:
+        n = p.shape[0]
+        cols = table.shape[1] if "whole table" in name else mt.live_columns(table)
+        check(cols >= num_tris, f"{name}: {cols} live columns for {num_tris} triangles")
+        t, tri, u, v = mt.mt_closest(table, p, d, cols=cols)
         pt, ptri, pu, pv = mt.mt_closest_plain(table, p, d)
         torch.cuda.synchronize()
         hit = ptri >= 0
         bad_tri = int((tri != ptri).sum())
-        bad_t = int((t != pt).sum())
-        duv = max(float((u - pu)[hit].abs().max()), float((v - pv)[hit].abs().max()))
-        dt = float((t - pt)[hit].abs().max())
-        occ = mt.mt_anyhit(table, p, d, tmax)
+        bad_t = int((bits(t) != bits(pt)).sum())
+        duv = max([float((u - pu)[hit].abs().max()), float((v - pv)[hit].abs().max())]
+                  if bool(hit.any()) else [0.0])
+        dt = float((t - pt)[hit].abs().max()) if bool(hit.any()) else 0.0
+        occ = mt.mt_anyhit(table, p, d, tmax, cols=cols)
         pocc = mt.mt_anyhit_plain(table, p, d, tmax)
         bad_occ = int((occ != pocc).sum())
-        print(f"{name}: {data.num_tris} tris, {N_RAYS} rays, {int(hit.sum())} hits, "
-              f"{int(pocc.sum())} occluded; mismatches tri {bad_tri} t {bad_t} "
-              f"occ {bad_occ}; max |du|,|dv| {duv:.3g}", flush=True)
+        zero = pt == 0
+        print(f"{name}: {num_tris} tris ({cols} columns walked), {n} rays, {int(hit.sum())} "
+              f"hits ({int(zero.sum())} at t = 0), {int(pocc.sum())} occluded; mismatches tri "
+              f"{bad_tri} t {bad_t} occ {bad_occ}; max |du|,|dv| {duv:.3g}", flush=True)
         check(bad_tri == 0 and bad_t == 0, f"mt_closest disagrees with its plain version on {name}")
         check(duv <= 1e-6, f"mt_closest u/v off by {duv} on {name}")
         check(bad_occ == 0, f"mt_anyhit disagrees with its plain version on {name}")
+        check(bool((bits(t)[zero] == 0).all()), f"mt_closest stores a t of -0.0 on {name}")
+        if "origins on triangles" in name:
+            check(int(zero.sum()) > n // 10, f"{name}: too few rays win at t = 0 to test it")
         err["mt_closest"] = max(err["mt_closest"], dt, duv)
         err["mt_anyhit"] = max(err["mt_anyhit"], float(bad_occ > 0))  # |1 - 0| on a mismatch
     return err
@@ -643,50 +692,141 @@ def profile_render(pt, ct, scenes):
 
 
 def anyhit_tests_needed(mt, table, p, d, tmax):
-    """Ray-triangle tests the any-hit kernel needs on these rays: up to and
-    including the first occluding column, none for tmax <= 0."""
+    """Ray-triangle tests the any-hit function needs on these rays: every
+    triangle (id >= 0) up to and including the first occluding column,
+    all of them for a ray never occluded, none for tmax <= 0. A pad
+    column is settled by its id and needs no test."""
     from phosphorus_mk2_tpu_torch.accel.intersect import mt_intersect_soa
 
     n, tp = p.shape[0], table.shape[1]
-    first = torch.full((n,), tp, dtype=torch.int64, device=p.device)
-    rp = (p[:, 0:1], p[:, 1:2], p[:, 2:3])
-    rd = (d[:, 0:1], d[:, 1:2], d[:, 2:3])
-    for base in range(tp - mt.TRI_TILE, -1, -mt.TRI_TILE):
-        rows = table[:, base : base + mt.TRI_TILE]
-        t, _, _, ok = mt_intersect_soa(rp, rd, tuple(rows[0:3, None]), tuple(rows[3:6, None]),
-                                       tuple(rows[6:9, None]))
-        ok = ok & (t < tmax[:, None]) & (rows[9].view(torch.int32) >= 0)[None, :]
-        col = torch.where(ok, torch.arange(mt.TRI_TILE, device=p.device)[None, :], mt.TRI_TILE)
-        c = col.min(dim=1).values
-        first = torch.where(c < mt.TRI_TILE, base + c, first)
-    needed = torch.where(first < tp, first + 1, tp)
-    return int(torch.where(tmax > 0, needed, 0).sum())
+    tris_upto = torch.cumsum((table[9].view(torch.int32) >= 0).long(), 0)  # through column c
+    total = 0
+    for r0 in range(0, n, N_RAYS):  # rays in slices: (rays, 512) temporaries
+        sp, sd, tm = p[r0 : r0 + N_RAYS], d[r0 : r0 + N_RAYS], tmax[r0 : r0 + N_RAYS]
+        first = torch.full((sp.shape[0],), tp, dtype=torch.int64, device=p.device)
+        rp = (sp[:, 0:1], sp[:, 1:2], sp[:, 2:3])
+        rd = (sd[:, 0:1], sd[:, 1:2], sd[:, 2:3])
+        for base in range(tp - mt.TRI_TILE, -1, -mt.TRI_TILE):
+            rows = table[:, base : base + mt.TRI_TILE]
+            t, _, _, ok = mt_intersect_soa(rp, rd, tuple(rows[0:3, None]),
+                                           tuple(rows[3:6, None]), tuple(rows[6:9, None]))
+            ok = ok & (t < tm[:, None]) & (rows[9].view(torch.int32) >= 0)[None, :]
+            col = torch.where(ok, torch.arange(mt.TRI_TILE, device=p.device)[None, :],
+                              mt.TRI_TILE)
+            c = col.min(dim=1).values
+            first = torch.where(c < mt.TRI_TILE, base + c, first)
+        needed = torch.where(first < tp, tris_upto[first.clamp(max=tp - 1)], tris_upto[-1])
+        total += int(torch.where(tm > 0, needed, 0).sum())
+    return total
 
 
-def mt_timing(mt, scenes, dev, launches, errs):
-    """Phase 7, MT kernels: ms per launch at the headline shape (65,536
-    rays against the cornell_box table), the bound and the plain ms."""
+def sass_loops(mt):
+    """Phase 2: the MT kernels' inner loops as compiled, from cuobjdump
+    -sass of the built library; {} where the toolkit has no cuobjdump."""
+    from phosphorus_mk2_tpu_torch.accel.build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("sass: no cuobjdump beside nvcc; instructions a test not measured", flush=True)
+        return {}
+    sass = subprocess.run([tool, "-sass", mt.build()._name], capture_output=True, text=True,
+                          timeout=120).stdout
+    out = loop_counts(sass, mt.CLOSEST_RAYS)
+    for kname, c in out.items():
+        print(f"sass {kname}: inner loop {c['loop_instructions']} instructions for {c['tests']} "
+              f"tests, {c['per_test']:.2f} a test ({c['fp32']} FP32/MUFU, {c['lds']} LDS)",
+              flush=True)
+    return out
+
+
+def loop_counts(sass, closest_rays):
+    """Instructions of each MT kernel's innermost loop that holds the
+    division (MUFU.RCP): mt_closest's column step (4 columns x
+    closest_rays rays) and mt_anyhit's ray step (4 columns a lane).
+    Static counts: the division's rare slow path lies outside the loop."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for kname, tests in (("mt_closest_kernel", 4 * closest_rays), ("mt_anyhit_kernel", 4)):
+        ins = next((v for k, v in funcs.items() if kname in k), [])
+        loops = []
+        for addr, text in ins:  # a loop: a branch back to a lower address
+            m = re.search(r"BRA\S*\s+(?:\S+,\s*)?(0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) <= addr:
+                body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                if any("MUFU.RCP" in t for t in body):
+                    loops.append(body)
+        if not loops:
+            continue
+        body = min(loops, key=len)
+        ops = [t.split()[1] if t.startswith("@") else t.split()[0] for t in body]
+        out[kname] = {"loop_instructions": len(body), "tests": tests,
+                      "per_test": len(body) / tests,
+                      "fp32": sum(o.startswith(("F", "MUFU")) for o in ops),
+                      "lds": sum(o.startswith("LDS") for o in ops)}
+    return out
+
+
+def sm_clock_under(fn, ms):
+    """(SM clock, its maximum) in MHz as nvidia-smi reads them while fn
+    runs back to back for about half a second."""
+    for _ in range(max(1, int(500 / max(ms, 1e-3)))):
+        fn()
+    q = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                       timeout=60)
+    torch.cuda.synchronize()
+    try:
+        return tuple(float(x) for x in q.stdout.strip().splitlines()[0].split(","))
+    except (IndexError, ValueError):
+        return None, None
+
+
+def mt_timing(mt, scenes, dev, launches, errs, sass):
+    """Phase 7, MT kernels: ms per launch at the main path's shapes (65,536
+    rays against the cornell_box table, the headline; 65,536 and 262,144
+    against multi_bsdf_scene's), the bound, the issue floor (instructions
+    a test as compiled x tests / 32 over 4 warp-instructions a clock on
+    every SM, at the SM clock read under load) and the plain ms. Tests
+    count the triangles only: a pad column (id -1) is settled by its id.
+    The kernels are given the live columns, as the brute tracer gives
+    them."""
     from phosphorus_mk2_tpu_torch.tools.row_gather_probe import launch_ms
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = None
     out = []
-    for name in ("cornell_box", "multi_bsdf_scene"):
+    for name, n in (("cornell_box", N_RAYS), ("multi_bsdf_scene", N_RAYS),
+                    ("multi_bsdf_scene", BIG_RAYS)):
         data = getattr(scenes, name)(8, 8).build(device=dev)
         table = mt.tri_table(data)
-        tp = table.shape[1]
-        p, d, tmax = random_rays(7, N_RAYS, dev)
-        tests_closest = N_RAYS * tp
+        tp, cols = table.shape[1], mt.live_columns(table)
+        tris = int((table[9].view(torch.int32) >= 0).sum())
+        p, d, tmax = random_rays(7, n, dev)
+        tests_closest = n * tris
         tests_any = anyhit_tests_needed(mt, table, p, d, tmax)
         rows = []
         for kname, fn, plain, tests, in_b, out_b in (
-            ("mt_closest", lambda: mt.mt_closest(table, p, d),
-             lambda: mt.mt_closest_plain(table, p, d), tests_closest, 24, 16),
-            ("mt_anyhit", lambda: mt.mt_anyhit(table, p, d, tmax),
-             lambda: mt.mt_anyhit_plain(table, p, d, tmax), tests_any, 28, 4),
+            ("mt_closest", lambda: mt.mt_closest(table, p, d, cols=cols),
+             lambda: mt.mt_closest_plain(table, p, d, cols=cols), tests_closest, 24, 16),
+            ("mt_anyhit", lambda: mt.mt_anyhit(table, p, d, tmax, cols=cols),
+             lambda: mt.mt_anyhit_plain(table, p, d, tmax, cols=cols), tests_any, 28, 4),
         ):
             ms = launch_ms(fn)
             plain_ms = launch_ms(plain, reps=3)
+            if clock is None and name == "multi_bsdf_scene":
+                clock, clock_max = sm_clock_under(fn, ms)
+                print(f"SM clock under mt_closest: {clock} MHz (max {clock_max} MHz)", flush=True)
             ops_ms = tests * MT_OPS_PER_TEST / H100_FP32_OPS * 1e3
-            bytes_ms = (N_RAYS * (in_b + out_b) + table.numel() * 4) / H100_BYTES * 1e3
+            bytes_ms = (n * (in_b + out_b) + tris * 40) / H100_BYTES * 1e3
             row = {
                 "name": kname, "route": "cuda",
                 "source": "phosphorus_mk2_tpu_torch/csrc/mt.cu",
@@ -697,15 +837,31 @@ def mt_timing(mt, scenes, dev, launches, errs):
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "library_ms": None, "parity": True,
-                "shape": f"{N_RAYS} rays x {tp} columns ({data.num_tris} tris, {name})",
+                "shape": f"{n} rays x {tris} tris ({tp} columns, {name})",
                 "tests": tests,
             }
+            if kname == "mt_closest":
+                row["plan"] = mt.closest_plan(n, cols, *mt.resident(mt.build(), p.device))
             rows.append(row)
-            print(f"{kname} on {name}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
+            print(f"{kname} on {name}, {n} rays: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
                   f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}: {tests} tests, "
                   f"ops {ops_ms:.5f} ms, bytes {bytes_ms:.5f} ms)", flush=True)
         out.append(rows)
+    for row in (r for rows in out for r in rows):
+        per_test = sass.get(f"{row['name']}_kernel", {}).get("per_test")
+        row["sm_clock_mhz"] = clock
+        row["issue_floor_ms"] = (per_test * row["tests"] / 32 / (4 * sms * clock * 1e6) * 1e3
+                                 if per_test and clock else None)
+        print(f"{row['name']} on {row['shape']}: issue floor " + (
+            f"{row['issue_floor_ms']:.5f} ms ({per_test:.2f} instructions a test, {clock} MHz, "
+            f"{row['ms'] / row['issue_floor_ms']:.3f}x)" if row["issue_floor_ms"]
+            else "not measured"), flush=True)
     print(json.dumps({"kernels_multi_bsdf_scene": out[1]}), flush=True)
+    print(json.dumps({f"kernels_multi_bsdf_scene_{BIG_RAYS}": out[2]}), flush=True)
+    for row in out[0]:  # the headline rows carry the other shapes' times
+        row["other_shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                  "issue_floor_ms", "tests")}
+                               for rows in out[1:] for r in rows if r["name"] == row["name"]]
     return out[0]  # the headline shape: 65,536 rays on cornell_box
 
 
@@ -920,6 +1076,7 @@ def run(profile: bool, upto: int) -> int:
 
     phase("2 build")
     build_all({"mt": mt, "front": front, "wave": wave, "native_bvh": native_bvh})
+    sass = sass_loops(mt)
     if upto < 3:
         return 0
 
@@ -960,12 +1117,13 @@ def run(profile: bool, upto: int) -> int:
     whole_path_vs_plain(mt, pt, scenes, dev)
 
     phase("7 kernel timing")
-    rows = mt_timing(mt, scenes, dev, launches, errs)
+    rows = mt_timing(mt, scenes, dev, launches, errs, sass)
     rows += front_timing(front, cases, launches, errs)
     rows += wave_timing(wave, ct, probe, wave_cases[0], launches, errs, dev)
 
     print(json.dumps({"tracer_vs_oracle": {"exact_t_ties": ties, "rays": N_RAYS,
                                            "fallback_share": fallback_share}}))
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
