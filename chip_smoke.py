@@ -19,15 +19,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (a winning -0.0 is stored as +0.0), each walking the table's live
      columns as the brute tracer does, and on 65,536 rays also the whole
      table: t and tri equal to the bit, u
-     and v within 1e-6, occlusion equal; front_full and front_slab_extract on the
-     tables of the full-size terrain_scene and of multi_bsdf_scene, both
-     with NaN rows, t_limit mixed (T_MAX, short, 0): every packed key
-     equal bit for bit; row_gather (direct and staged) against indexing
+     and v within 1e-6, occlusion equal; front_full (candidates by column,
+     and the kk it selects) and front_slab_extract on the tables of the
+     full-size terrain_scene and of multi_bsdf_scene, both with NaN rows,
+     t_limit mixed (T_MAX, short, 0), and on synthetic tables: K2 45 (not
+     a multiple of 32), jj 1 (jj * SC below kk), K2 768 with every near
+     parent in one lane's columns, K2 700 with jj 32 and the near
+     candidates crowding two lanes, rays with a zero, denormal or
+     infinite direction component, and the flat supercluster whose
+     tnear is -0.0, tied at 0: every packed key equal bit for bit;
+     row_gather (direct and staged) against indexing
      at the TPU probe's geometry (K 10,987, R 4,096) and on the terrain's
      row table with repeated and boundary indices; wave_mt against
      wave_mt_plain on both scenes' front tables (W = 1 and W = 4, closest
-     and any-hit, dead rays, dead columns with out-of-range ids) and
-     wave_sweep against wave_sweep_plain on 300 rays, and both on rays
+     and any-hit, dead rays, dead columns with out-of-range ids), on the
+     terrain's table with every ray of a warp on one cluster, every ray
+     on its own and one triangle at equal t in two columns, at the plan's
+     gate and at each gate forced, beside wave_mt_plain(gate=) walking the
+     same decomposition; wave_sweep against wave_sweep_plain on 300 rays,
+     and both on rays
      that start on a triangle (a winning t of -0.0 is stored as +0.0):
      t, cluster and lane equal bit for bit;
   4. tracer against oracle: intersect_clusters / occluded_clusters on the
@@ -58,10 +68,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      loop's instructions a test x tests / 32 over 4 warp-instructions a
      clock on every SM, at the SM clock nvidia-smi reads under load),
      both counting the tests over the columns that hold a triangle;
-     the front kernels at 65,536 rays;
+     the front kernels at 65,536 rays, front_full selecting kk = 32 beside
+     torch.sort of its candidate rows (the call it replaces);
      row_gather at the probe's geometry (both variants, also as ns per
      row and GB/s, beside index_select); wave_mt on the terrain's first
-     and eighth wave of 65,536 rays; wave_sweep at 8 rays x all clusters.
+     and eighth wave of 65,536 rays and the first and fourth of 131,072
+     rays on multi_bsdf_scene, beside three bounds (each distinct row
+     once, each group's row once, every row from device memory);
+     wave_sweep at 8 rays x all clusters.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -244,45 +258,145 @@ def mt_parity(mt, scenes, dev):
     return err
 
 
-def front_args(bvh, p, d, tlim):
+def front_args(bvh, p, d, tlim, jj=None):
     """The arguments of the front kernels for one BVH and ray set."""
     from phosphorus_mk2_tpu_torch.accel import cluster_traverse as ct
 
-    jj = min(ct.SC_FRONT, bvh["sc_bmin"].shape[0])
+    jj = jj or min(ct.SC_FRONT, bvh["sc_bmin"].shape[0])
     slab = (bvh["sc_bmin"], bvh["sc_bmax"], p, d, tlim, jj)
     full = (bvh["sc_bmin"], bvh["sc_bmax"], bvh["sc_member_bmin"], bvh["sc_member_bmax"],
             p, d, tlim, jj)
     return slab, full, jj
 
 
+def synthetic_front(k2, seed, dev, hot_lane=None, hot_slot=None, n=N_RAYS):
+    """A two-level table of k2 superclusters of 16 member boxes (one member
+    slot in six NaN, the last supercluster wholly NaN) and n rays with
+    origins near the centre, their limits mixed; some rays have an axis
+    component of 0, a denormal one (inv is infinite) or an infinite one
+    (inv is 0), which the kernels take through the NaN-propagating slab.
+    hot_lane: the superclusters of columns k = hot_lane (mod 32) sit around
+    the origins and every other one far off, so a ray's nearest parents all
+    lie in one lane's columns (a lane of front_full gives more keys than
+    its window holds). hot_slot: member slot s of every supercluster is the
+    near one, so the nearest candidates j * 16 + s crowd two lanes."""
+    rs = np.random.RandomState(seed)
+    sc = 16
+    centre = rs.uniform(-6.0, 6.0, size=(k2, 1, 3))
+    if hot_lane is not None:
+        hot = np.arange(k2) % 32 == hot_lane
+        centre[hot] = rs.uniform(-1.0, 1.0, size=(int(hot.sum()), 1, 3))
+        centre[~hot] *= 3.0
+    lo = (centre + rs.uniform(-0.8, 0.2, size=(k2, sc, 3))).astype(np.float32)
+    if hot_slot is not None:
+        lo[:, hot_slot] = rs.uniform(-1.2, 0.2, size=(k2, 3))
+    hi = (lo + rs.uniform(0.05, 0.6, size=(k2, sc, 3))).astype(np.float32)
+    if hot_slot is not None:
+        hi[:, hot_slot] = lo[:, hot_slot] + 1.0
+    empty = rs.uniform(size=(k2, sc)) < 0.17
+    if hot_slot is not None:
+        empty[:, hot_slot] = False
+    empty[-1] = True
+    lo[empty] = np.nan
+    hi[empty] = np.nan
+    sc_lo = np.min(np.where(empty[..., None], np.inf, lo), axis=1).astype(np.float32)
+    sc_hi = np.max(np.where(empty[..., None], -np.inf, hi), axis=1).astype(np.float32)
+    sc_lo[-1] = np.nan
+    sc_hi[-1] = np.nan
+    p = rs.uniform(-0.5, 0.5, size=(n, 3)).astype(np.float32)
+    dd = rs.normal(size=(n, 3)).astype(np.float32)
+    dd /= np.linalg.norm(dd, axis=-1, keepdims=True)
+    dd[1::101, 0] = 0.0
+    dd[2::101, 1] = 1e-40
+    dd[3::101, 2] = -np.inf
+    bvh = {k: torch.from_numpy(v).to(dev) for k, v in
+           (("sc_bmin", sc_lo), ("sc_bmax", sc_hi), ("sc_member_bmin", lo),
+            ("sc_member_bmax", hi))}
+    return bvh, torch.from_numpy(p).to(dev), torch.from_numpy(dd).to(dev)
+
+
+def flat_front(dev):
+    """The flat supercluster of tests/test_torch_front_select.py: rays from
+    the plane x = 0 of box 1 with dx < 0, so box 1's raw tnear is -0.0 and
+    boxes 0, 1, 2 all tie at tnear 0; one real member each, its own box,
+    among NaN slots."""
+    bmin = np.array([[-1, -1, -1], [0, -1, -1], [-2, -2, -2], [-3, -1e3, -1e3]], np.float32)
+    bmax = np.array([[1, 1, 1], [0, 1, 1], [2, 2, 2], [-2.5, 1e3, 1e3]], np.float32)
+    rs = np.random.RandomState(80)
+    n = 4096
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d[:, 0] = -np.abs(d[:, 0]) - 0.1
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    p = np.zeros((n, 3), np.float32)
+    p[:, 1:] = rs.uniform(-0.5, 0.5, size=(n, 2)).astype(np.float32)
+    mb_min = np.full((4, 16, 3), np.nan, np.float32)
+    mb_max = np.full((4, 16, 3), np.nan, np.float32)
+    for s in range(4):
+        mb_min[s, (5 * s) % 16], mb_max[s, (5 * s) % 16] = bmin[s], bmax[s]
+    bvh = {k: torch.from_numpy(v).to(dev) for k, v in
+           (("sc_bmin", bmin), ("sc_bmax", bmax), ("sc_member_bmin", mb_min),
+            ("sc_member_bmax", mb_max))}
+    return bvh, torch.from_numpy(p).to(dev), torch.from_numpy(d).to(dev)
+
+
+def front_cases(cases, dev):
+    """Phase 3's front inputs: the scenes' tables, then the adversarial
+    ones. (name, bvh, p, d, tlim, jj or None, the kk to select)."""
+    out = [(name, bvh, p, d, tlim, None, (32, 100)) for name, bvh, p, d, tlim in cases]
+    for name, k2, jj, kw in (
+        ("synthetic K2 45 (not a multiple of 32)", 45, None, {}),
+        ("synthetic K2 45, jj 1 (jj * SC = 16 < kk)", 45, 1, {}),
+        ("synthetic K2 768, nearest parents in lane 5", 768, None, {"hot_lane": 5}),
+        ("synthetic K2 700, jj 32 (512 candidates), nearest member slot 0", 700, 32,
+         {"hot_slot": 0}),
+    ):
+        bvh, p, d = synthetic_front(k2, 30 + k2 + (jj or 0), dev, **kw)
+        out.append((name, bvh, p, d, mixed_limits(31, p.shape[0], dev), jj, (32,)))
+    bvh, p, d = flat_front(dev)
+    far = torch.full((p.shape[0],), T_MAX, dtype=torch.float32, device=dev)
+    out.append(("flat supercluster (tnear -0.0 and ties at 0)", bvh, p, d, far, 4, (4, 100)))
+    return out
+
+
 def front_parity(front, cases):
     """Both front kernels against their plain versions: every packed key
-    bit for bit. cases: (name, bvh, p, d, tlim). Returns the largest
-    absolute key difference per kernel (0 when they agree)."""
+    bit for bit, the candidate keys by column and, given kk, the kk
+    selected in ascending order. cases: front_cases(). Returns the
+    largest absolute key difference per kernel (0 when they agree)."""
     err = {"front_full": 0.0, "front_slab_extract": 0.0}
-    for name, bvh, p, d, tlim in cases:
-        slab, full, jj = front_args(bvh, p, d, tlim)
+    for name, bvh, p, d, tlim, jj, kks in cases:
+        slab, full, jj = front_args(bvh, p, d, tlim, jj)
         nan_rows = int(torch.isnan(bvh["sc_member_bmin"]).any(dim=-1).sum())
         check(nan_rows > 0, f"{name}: the member table has no NaN row to test the NaN rule on")
-        pk, ck = front.front_full(*full)
-        ppk, pck = front.front_full_plain(*full)
+        outs = [(None, front.front_full(*full), front.front_full_plain(*full))]
+        outs += [(kk, front.front_full(*full, kk), front.front_full_plain(*full, kk=kk))
+                 for kk in kks]
         sk = front.front_slab_extract(*slab)
         psk = front.front_slab_extract_plain(*slab)
         torch.cuda.synchronize()
-        bad_full = int((pk != ppk).sum()) + int((ck != pck).sum())
-        bad_slab = int((sk != psk).sum())
-        nbits = front.key_bits(ck.shape[1])
-        pending = int(((ck & -(1 << nbits)) < front.tmax_key(nbits)).sum())
         k2, sc = bvh["sc_member_bmin"].shape[:2]
-        print(f"{name}: K2 {k2}, jj {jj}, SC {sc}, {nan_rows} NaN member rows, {p.shape[0]} rays, "
-              f"{pending} pending candidates; mismatched keys front_full {bad_full} of "
-              f"{pk.numel() + ck.numel()}, front_slab_extract {bad_slab} of {sk.numel()}",
+        nbits = front.key_bits(jj * sc)
+        pk = outs[0][1][0]
+        for kk, (gk, gc), (wk, wc) in outs:
+            bad = int((gk != wk).sum()) + int((gc != wc).sum())
+            pending = int(((wc & -(1 << nbits)) < front.tmax_key(nbits)).sum())
+            nohit = int(((wc & -(1 << nbits)) >= front.tmax_key(nbits)).all(dim=1).sum())
+            print(f"front_full{'' if kk is None else f' kk {kk}'} on {name}: K2 {k2}, jj {jj}, "
+                  f"SC {sc}, {nan_rows} NaN member rows, {p.shape[0]} rays, {pending} pending "
+                  f"candidates, {nohit} rows with none; mismatched keys {bad} of "
+                  f"{gk.numel() + gc.numel()}", flush=True)
+            check(bad == 0, f"front_full (kk {kk}) disagrees with its plain version on {name}")
+            check(kk is None or tuple(gc.shape) == (p.shape[0], min(kk, jj * sc)),
+                  f"front_full kk {kk} on {name}: {tuple(gc.shape)} keys")
+            check(torch.equal(gk, pk), f"{name}: front_full's parent keys differ with kk")
+            err["front_full"] = max(err["front_full"],
+                                    float((gk.long() - wk.long()).abs().max()),
+                                    float((gc.long() - wc.long()).abs().max()))
+        bad_slab = int((sk != psk).sum())
+        print(f"front_slab_extract on {name}: mismatched keys {bad_slab} of {sk.numel()}",
               flush=True)
-        check(bad_full == 0, f"front_full disagrees with its plain version on {name}")
         check(bad_slab == 0, f"front_slab_extract disagrees with its plain version on {name}")
         check(torch.equal(sk, pk), f"{name}: the two kernels' parent keys differ")
-        err["front_full"] = max(err["front_full"], float((pk.long() - ppk.long()).abs().max()),
-                                float((ck.long() - pck.long()).abs().max()))
         err["front_slab_extract"] = max(err["front_slab_extract"],
                                         float((sk.long() - psk.long()).abs().max()))
     return err
@@ -412,7 +526,84 @@ def wave_parity(wave, ct, probe, cases, dev):
         torch.cuda.synchronize()
         hits = agree("wave_sweep", f"on {name}, 300 rays x {k} clusters", *states)
         check(0 < hits <= 300, f"wave_sweep on {name}: {hits} rays hit, no test")
+
+    # wave_mt's grouping, on the terrain's table: every ray of a warp on
+    # one cluster, every ray on a cluster of its own, and one triangle met
+    # at equal t in two columns (clusters K.. copy 0..63), each with the
+    # plan's gate and with every gate forced, and the plain walk of the
+    # same decomposition
+    table = cases[0][1].bvh["cluster_rows"]
+    k = table.shape[0]
+    twin = torch.cat([table, table[:64]])
+    for label, tbl, col_c in (
+        ("all rays on one cluster", table, torch.full((8192, 1), 77, dtype=torch.int32)),
+        ("every ray on its own cluster", table, torch.arange(k, dtype=torch.int32)[:, None]),
+        ("equal t in columns 0 and 2", twin, tied_columns(k, 8192, dev)),
+    ):
+        col_c = col_c.to(dev).contiguous()
+        n = col_c.shape[0]
+        p, d = aimed_rays(tbl, col_c[:, 0], 24, dev)
+        col_t = torch.zeros(col_c.shape, dtype=torch.float32, device=dev)
+        col_t[::13, 1:] = T_MAX
+        want = fresh_state(torch.full((n,), T_MAX, dtype=torch.float32, device=dev))
+        wave.wave_mt_plain(p, d, tbl, col_t, col_c, False, *want)
+        for gate in (None, *wave.GATES):
+            got = fresh_state(want[0].new_full((n,), T_MAX))
+            wave.wave_mt(p, d, tbl, col_t, col_c, False, *got, gate=gate)
+            walked = fresh_state(want[0].new_full((n,), T_MAX))
+            wave.wave_mt_plain(p, d, tbl, col_t, col_c, False, *walked, gate=gate or 8)
+            torch.cuda.synchronize()
+            g = gate or wave.gate_plan(n, *wave.resident(wave.build(), p.device))["g"]
+            groups = wave.wave_groups(col_t, col_c, want[0].new_full((n,), T_MAX),
+                                      want[1], False, tbl.shape[0], g)
+            hits = agree("wave_mt", f"{label}, {n} rays x {col_c.shape[1]} columns, gate "
+                         f"{g}{'' if gate else ' (plan)'}, {groups} rows fetched", got, want)
+            check(all(torch.equal(a, b) for a, b in zip(walked, want)),
+                  f"wave_mt_plain(gate={gate or 8}) differs from the uncut walk on {label}")
+            check(hits > n // 2, f"wave_mt {label}: {hits} of {n} rays hit, no test")
+        if tbl is twin:
+            both = (want[1] % k == col_c[:, 0] % k) & (want[1] >= 0) & (col_t[:, 2] < T_MAX)
+            check(int(both.sum()) > n // 4 and bool((want[1][both] == col_c[both, 0]).all()),
+                  "equal t in columns 0 and 2: the winner is not column 0's cluster")
     return err
+
+
+def pixel_rays(scene, dev):
+    """One camera ray through the centre of every pixel, row by row."""
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params, generate_rays
+
+    cam = scene.camera
+    i = torch.arange(cam.width * cam.height, device=dev)
+    half = torch.full((i.shape[0], 2), 0.5, device=dev)
+    p, d = generate_rays(camera_to_params(cam, dev), i % cam.width, i // cam.width, half, half)
+    return p.contiguous(), d.contiguous()
+
+
+def aimed_rays(table, cid, seed, dev):
+    """Rays that end on the centroid of a triangle of their cluster cid
+    (n,), from 0.5 to 3 away in a random direction."""
+    rs = np.random.RandomState(seed)
+    n = cid.shape[0]
+    lane = torch.from_numpy(rs.randint(0, 128, size=n)).to(dev)
+    rows = table[cid.long()]                                   # (n, 9, 128)
+    real = rows[:, 3:6].abs().sum(dim=1) > 0                   # (n, 128)
+    lane = torch.where(real.gather(1, lane[:, None])[:, 0], lane, real.int().argmax(dim=1))
+    tri = rows.gather(2, lane[:, None, None].expand(n, 9, 1))[:, :, 0]
+    target = tri[:, 0:3] + (tri[:, 3:6] + tri[:, 6:9]) / 3
+    back = random_rays(seed, n, dev)[1]
+    dist = torch.from_numpy(rs.uniform(0.5, 3.0, size=(n, 1)).astype(np.float32)).to(dev)
+    return (target + back * dist).contiguous(), (-back).contiguous()
+
+
+def tied_columns(k, n, dev):
+    """(n, 3) cluster ids: column 0 and column 2 name a cluster of 0..63
+    and its copy K + c, by turns which first; column 1 another cluster."""
+    rs = np.random.RandomState(25)
+    c = rs.randint(0, 64, size=n)
+    cols = np.stack([c, rs.randint(0, k, size=n), c], axis=1).astype(np.int32)
+    cols[0::2, 0] += k
+    cols[1::2, 2] += k
+    return torch.from_numpy(cols).to(dev)
 
 
 def tracer_vs_oracle(mt, ct, terrain, data, dev):
@@ -720,17 +911,18 @@ def anyhit_tests_needed(mt, table, p, d, tmax):
     return total
 
 
-def sass_loops(mt):
-    """Phase 2: the MT kernels' inner loops as compiled, from cuobjdump
-    -sass of the built library; {} where the toolkit has no cuobjdump."""
+def sass_loops(mt, wave):
+    """Phase 2: the MT kernels' inner loops and wave_mt's loop over a
+    group's rays as compiled, from cuobjdump -sass of the built
+    libraries; {} where the toolkit has no cuobjdump."""
     from phosphorus_mk2_tpu_torch.accel.build import find_nvcc
 
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         print("sass: no cuobjdump beside nvcc; instructions a test not measured", flush=True)
         return {}
-    sass = subprocess.run([tool, "-sass", mt.build()._name], capture_output=True, text=True,
-                          timeout=120).stdout
+    sass = "\n".join(subprocess.run([tool, "-sass", lib.build()._name], capture_output=True,
+                                    text=True, timeout=120).stdout for lib in (mt, wave))
     out = loop_counts(sass, mt.CLOSEST_RAYS)
     for kname, c in out.items():
         print(f"sass {kname}: inner loop {c['loop_instructions']} instructions for {c['tests']} "
@@ -742,7 +934,9 @@ def sass_loops(mt):
 def loop_counts(sass, closest_rays):
     """Instructions of each MT kernel's innermost loop that holds the
     division (MUFU.RCP): mt_closest's column step (4 columns x
-    closest_rays rays) and mt_anyhit's ray step (4 columns a lane).
+    closest_rays rays), mt_anyhit's ray step (4 columns a lane) and
+    wave_mt's step over a group's rays (4 triangles a lane, the warp
+    reductions and the merge).
     Static counts: the division's rare slow path lies outside the loop."""
     funcs, name = {}, None
     for line in sass.splitlines():
@@ -755,7 +949,8 @@ def loop_counts(sass, closest_rays):
         if m and name is not None:
             funcs[name].append((int(m.group(1), 16), m.group(2)))
     out = {}
-    for kname, tests in (("mt_closest_kernel", 4 * closest_rays), ("mt_anyhit_kernel", 4)):
+    for kname, tests in (("mt_closest_kernel", 4 * closest_rays), ("mt_anyhit_kernel", 4),
+                         ("wave_mt_kernel", 4)):
         ins = next((v for k, v in funcs.items() if kname in k), [])
         loops = []
         for addr, text in ins:  # a loop: a branch back to a lower address
@@ -868,11 +1063,16 @@ def mt_timing(mt, scenes, dev, launches, errs, sass):
 def front_timing(front, cases, launches, errs):
     """Phase 7, front kernels: ms per launch at 65,536 rays on the terrain
     tables (the first case; the others are printed beside it), the bound
-    from this run's inputs and the plain ms.
+    from this run's inputs and the plain ms. front_full is timed as the
+    tracer calls it, selecting kk = 32; its library time is torch.sort of
+    the (n, jj * SC) candidate keys, the call whose work the selection
+    took over (``front_all`` sorted those rows before).
 
-    Bound: bytes = rays x (28 B in + 4 B per key out) + the tables once;
-    operations = per ray K2 slab tests + jj x K2 key compares + SC member
-    slab tests per VALID parent (counted from these rays' parent keys)."""
+    Bound: bytes = rays x (28 B in + 4 B per key out: jj + kk for
+    front_full, jj for front_slab_extract) + the tables once; operations =
+    per ray K2 slab tests + jj x K2 key compares + SC member slab tests
+    per VALID parent (counted from these rays' parent keys)."""
+    from phosphorus_mk2_tpu_torch.accel import cluster_traverse as ct
     from phosphorus_mk2_tpu_torch.tools.row_gather_probe import launch_ms
 
     out = []
@@ -880,18 +1080,23 @@ def front_timing(front, cases, launches, errs):
         slab, full, jj = front_args(bvh, p, d, tlim)
         k2, sc = bvh["sc_member_bmin"].shape[:2]
         n = p.shape[0]
+        kk = min(ct.MAX_FRONT, jj * sc)
         pk = front.front_slab_extract(*slab)
         nbits = front.parent_key_bits(k2)
         valid = int(((pk & -(1 << nbits)) < front.tmax_key(nbits)).sum())
         base_ops = n * (k2 * SLAB_OPS + jj * k2)
+        ck = front.front_full(*full)[1]  # the candidate keys by column
+        sort_ms = launch_ms(lambda: torch.sort(ck, dim=1))
+        by_column_ms = launch_ms(lambda: front.front_full(*full))
         rows = []
-        for kname, fn, plain, ops, keys, table_b, line in (
-            ("front_full", lambda: front.front_full(*full),
-             lambda: front.front_full_plain(*full), base_ops + valid * sc * SLAB_OPS,
-             jj + jj * sc, k2 * 24 + k2 * sc * 24, "phosphorus_mk2_tpu/accel/pallas_front.py:136"),
+        for kname, fn, plain, ops, keys, table_b, line, library in (
+            ("front_full", lambda: front.front_full(*full, kk),
+             lambda: front.front_full_plain(*full, kk=kk), base_ops + valid * sc * SLAB_OPS,
+             jj + kk, k2 * 24 + k2 * sc * 24, "phosphorus_mk2_tpu/accel/pallas_front.py:136",
+             sort_ms),
             ("front_slab_extract", lambda: front.front_slab_extract(*slab),
              lambda: front.front_slab_extract_plain(*slab), base_ops, jj, k2 * 24,
-             "phosphorus_mk2_tpu/accel/pallas_front.py:36"),
+             "phosphorus_mk2_tpu/accel/pallas_front.py:36", None),
         ):
             ms = launch_ms(fn)
             plain_ms = launch_ms(plain, reps=3)
@@ -903,14 +1108,20 @@ def front_timing(front, cases, launches, errs):
                 "launches": launches[kname], "max_abs_err": errs[kname],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "library_ms": None, "parity": True,
-                "shape": f"{n} rays x K2 {k2}, jj {jj}, SC {sc} ({name})",
+                "library_ms": library, "parity": True,
+                "shape": (f"{n} rays x K2 {k2}, jj {jj}, SC {sc}"
+                          + (f", kk {kk}" if kname == "front_full" else "") + f" ({name})"),
                 "operations": ops, "valid_parents": valid,
             }
+            if kname == "front_full":
+                row["ms_by_column"] = by_column_ms
             rows.append(row)
             print(f"{kname} on {name}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, "
                   f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}: {ops} operations, "
-                  f"{valid} valid parents, ops {ops_ms:.5f} ms, bytes {bytes_ms:.5f} ms)",
+                  f"{valid} valid parents, ops {ops_ms:.5f} ms, bytes {bytes_ms:.5f} ms)"
+                  + (f"; library (torch.sort of the {n} x {jj * sc} candidate keys) "
+                     f"{library:.4f} ms; the kernel writing every candidate by column "
+                     f"{by_column_ms:.4f} ms" if library is not None else ""),
                   flush=True)
         out.append(rows)
     for name, rows in zip([c[0] for c in cases[1:]], out[1:]):
@@ -918,7 +1129,8 @@ def front_timing(front, cases, launches, errs):
     return out[0]
 
 
-def wave_timing(wave, ct, probe, case, launches, errs, dev):
+def wave_timing(wave, ct, probe, scenes, case, multi, launches, errs, dev, loop=None,
+                clock=None):
     """Phase 7, wave kernels. Bounds from this run's inputs.
 
     row_gather: the probe's geometry; bytes = each DISTINCT row read once
@@ -929,7 +1141,10 @@ def wave_timing(wave, ct, probe, case, launches, errs, dev):
     and id) + 8 a ray (tnear, best t) + 12 a winner written + the rows,
     given twice: each DISTINCT cluster's 4,608-byte row once (the table
     is one input, read once: the bound), and every live pair's row from
-    device memory; operations = live pairs x 128 tests x 46. wave_sweep: 8 rays x every
+    device memory; operations = live pairs x 128 tests x 46; beside them
+    wave_mt's issue floor, the instructions of its loop over a group's
+    rays (``loop``, from phase 2) x live pairs over 4 warp-instructions a
+    clock on every SM at ``clock`` MHz. wave_sweep: 8 rays x every
     cluster; bytes = the table once; operations = pairs x 128 x 46."""
     launch_ms = probe.launch_ms
     rows = []
@@ -967,17 +1182,22 @@ def wave_timing(wave, ct, probe, case, launches, errs, dev):
             flush=True)
 
     # ---- wave_mt: the first and the eighth wave of a closest-hit trace
-    name, data, p, d, _ = case
-    table = data.bvh["cluster_rows"]
-    k = table.shape[0]
-    n = p.shape[0]
-    tlim = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
-    ttbl, ctbl = front_table(ct, data, p, d, tlim)
-    state = fresh_state(tlim)
-    waves = []
-    for w in range(8):
-        col_t, col_c = ttbl[:, w : w + 1], ctbl[:, w : w + 1]
-        if w in (0, 7):
+    # of the terrain's rays, then the first of 131,072 rays on
+    # multi_bsdf_scene's 56 clusters (the wavefront of its BVH renders)
+    sms_blocks = wave.resident(wave.build(), dev)
+
+    def time_wave(label, data, p, d, w_at):
+        table = data.bvh["cluster_rows"]
+        n = p.shape[0]
+        tlim = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
+        ttbl, ctbl = front_table(ct, data, p, d, tlim)
+        state = fresh_state(tlim)
+        out = []
+        for w in range(max(w_at) + 1):
+            col_t, col_c = ttbl[:, w : w + 1], ctbl[:, w : w + 1]
+            if w not in w_at:
+                wave.wave_mt(p, d, table, col_t, col_c, False, *state)
+                continue
             saved = [x.clone() for x in state]
 
             def reset(saved=saved):
@@ -987,8 +1207,14 @@ def wave_timing(wave, ct, probe, case, launches, errs, dev):
             live = wave.live_columns(col_t, state[0], state[1], False)[:, 0]
             pairs = int(live.sum())
             distinct = int(torch.unique(col_c[:, 0][live]).numel())
+            g = wave.gate_plan(n, *sms_blocks)["g"]
+            groups = wave.wave_groups(col_t, col_c, state[0], state[1], False,
+                                      table.shape[0], g)
             ms_k = launch_ms(lambda: wave.wave_mt(p, d, table, col_t, col_c, False, *state),
                              before=reset)
+            by_gate = {gate: launch_ms(lambda gate=gate: wave.wave_mt(
+                p, d, table, col_t, col_c, False, *state, gate=gate), before=reset)
+                for gate in wave.GATES}
             ms_p = launch_ms(
                 lambda: wave.wave_mt_plain(p, d, table, col_t, col_c, False, *state), reps=3,
                 before=reset)
@@ -999,17 +1225,41 @@ def wave_timing(wave, ct, probe, case, launches, errs, dev):
             rest = pairs * 28 + n * 8 + won * 12
             hbm_ms = (pairs * row_b + rest) / H100_BYTES * 1e3
             l2_ms = (distinct * row_b + rest) / H100_BYTES * 1e3
-            waves.append({"wave": w + 1, "rays": n, "live_pairs": pairs, "live_share": pairs / n,
-                          "distinct_clusters": distinct, "winners": won, "ms": ms_k,
-                          "plain_ms": ms_p, "ops_ms": ops_ms, "bound_ms": max(ops_ms, l2_ms),
-                          "bound_ms_every_row_from_device_memory": max(ops_ms, hbm_ms)})
-            print(f"wave_mt on {name}, wave {w + 1} of {n} rays: live share {pairs / n:.4f} "
-                  f"({pairs} rows, {distinct} distinct clusters), {won} winners; {ms_k:.5f} "
-                  f"ms/launch, plain {ms_p:.4f} ms; bound {max(ops_ms, l2_ms):.5f} ms with each "
-                  f"distinct row read once, {max(ops_ms, hbm_ms):.5f} ms with every row from "
-                  f"device memory (ops {ops_ms:.5f} ms)", flush=True)
-        else:
-            wave.wave_mt(p, d, table, col_t, col_c, False, *state)
+            group_ms = (groups * row_b + rest) / H100_BYTES * 1e3
+            floor_ms = (loop["loop_instructions"] * pairs / (4 * sms_blocks[0] * clock * 1e6)
+                        * 1e3 if loop and clock else None)
+            out.append({"scene": label, "wave": w + 1, "rays": n, "live_pairs": pairs,
+                        "live_share": pairs / n, "distinct_clusters": distinct, "gate": g,
+                        "groups": groups, "winners": won, "ms": ms_k, "ms_by_gate": by_gate,
+                        "plain_ms": ms_p,
+                        "ops_ms": ops_ms, "issue_floor_ms": floor_ms,
+                        "bound_ms": max(ops_ms, l2_ms),
+                        "bound_ms_each_group_row_once": max(ops_ms, group_ms),
+                        "bound_ms_every_row_from_device_memory": max(ops_ms, hbm_ms)})
+            print(f"wave_mt on {label}, wave {w + 1} of {n} rays: live share {pairs / n:.4f} "
+                  f"({pairs} rows, {distinct} distinct clusters, {groups} groups at gate {g}), "
+                  f"{won} winners; {ms_k:.5f} ms/launch (gate forced: " + ", ".join(
+                      f"{gate} {t:.5f}" for gate, t in by_gate.items())
+                  + f"), plain {ms_p:.4f} ms; bound "
+                  f"{max(ops_ms, l2_ms):.5f} ms with each distinct row read once, "
+                  f"{max(ops_ms, group_ms):.5f} ms with each group's row once, "
+                  f"{max(ops_ms, hbm_ms):.5f} ms with every row from device memory (ops "
+                  f"{ops_ms:.5f} ms); issue floor "
+                  + (f"{floor_ms:.5f} ms" if floor_ms else "not measured"), flush=True)
+        return out
+
+    name, data, p, d, _ = case
+    k = data.bvh["cluster_rows"].shape[0]
+    n = p.shape[0]
+    waves = time_wave(name, data, p, d, (0, 7))
+    # the same scene's camera rays in pixel order, as a render's wavefront
+    # holds them: neighbouring rays share clusters
+    waves += time_wave(f"{name} camera rays in pixel order", data,
+                       *pixel_rays(scenes.terrain_scene(), dev), (0, 7))
+    mp, md, _ = random_rays(14, 2 * N_RAYS, dev)
+    waves += time_wave("multi_bsdf_scene", multi, mp, md, (0, 3))
+    table = data.bvh["cluster_rows"]
+    tlim = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
     first = waves[0]
     rows.append({
         "name": "wave_mt", "route": "cuda",
@@ -1076,7 +1326,7 @@ def run(profile: bool, upto: int) -> int:
 
     phase("2 build")
     build_all({"mt": mt, "front": front, "wave": wave, "native_bvh": native_bvh})
-    sass = sass_loops(mt)
+    sass = sass_loops(mt, wave)
     if upto < 3:
         return 0
 
@@ -1095,7 +1345,7 @@ def run(profile: bool, upto: int) -> int:
     mp, md, _ = random_rays(4, N_RAYS, dev)
     cases = [("terrain_scene", bvh, tp, td, mixed_limits(5, N_RAYS, dev)),
              ("multi_bsdf_scene", multi_data.bvh, mp, md, mixed_limits(6, N_RAYS, dev))]
-    errs.update(front_parity(front, cases))
+    errs.update(front_parity(front, front_cases(cases, dev)))
     wave_cases = [("terrain_scene", terrain_data, tp, td, cases[0][4]),
                   ("multi_bsdf_scene", multi_data, mp, md, cases[1][4])]
     errs.update(wave_parity(wave, ct, probe, wave_cases, dev))
@@ -1119,7 +1369,8 @@ def run(profile: bool, upto: int) -> int:
     phase("7 kernel timing")
     rows = mt_timing(mt, scenes, dev, launches, errs, sass)
     rows += front_timing(front, cases, launches, errs)
-    rows += wave_timing(wave, ct, probe, wave_cases[0], launches, errs, dev)
+    rows += wave_timing(wave, ct, probe, scenes, wave_cases[0], multi_data, launches, errs,
+                        dev, sass.get("wave_mt_kernel"), rows[0]["sm_clock_mhz"])
 
     print(json.dumps({"tracer_vs_oracle": {"exact_t_ties": ties, "rays": N_RAYS,
                                            "fallback_share": fallback_share}}))

@@ -9,14 +9,16 @@ stages with no per-node stack:
    front to back, from slab tests of the cluster boxes. Up to
    DENSE_K clusters all (N, K) boxes are tested; above it the test goes
    through superclusters of 16 (``_front_table_hierarchical``), and that
-   whole two-level table is one hand-written CUDA kernel on the card
-   (accel/front.py ``front_full``);
+   whole two-level table, the selection of the kk nearest included, is
+   one hand-written CUDA kernel on the card (accel/front.py
+   ``front_full``);
 2. the wave loop: wave w tests every ray still live at its column w
    against that cluster's (9, 128) triangle rows, a dense
    Moller-Trumbore min-update. On the card a wave is one hand-written
-   CUDA kernel (accel/wave.py ``wave_mt``: a warp per ray evaluates the
-   live gate, fetches the row and reduces the winner); on CPU tensors it
-   is the plain gather + ``_mt_rows``;
+   CUDA kernel (accel/wave.py ``wave_mt``: a lane per ray evaluates the
+   live gate, a warp fetches each cluster's row once for the rays that
+   want it and reduces each ray's winner); on CPU tensors it is the
+   plain gather + ``_mt_rows``;
 3. the exact fallback: rays whose table did not cover their hit range
    (table overflow, supercluster horizon) test every cluster
    (``wave_sweep``, a kernel on the card as well).

@@ -2,15 +2,16 @@
 kernels for Hopper and their plain PyTorch versions.
 
 Counterpart of ``phosphorus_mk2_tpu/accel/pallas_front.py``:
-  * ``front_full`` replaces ``_kernel_full`` (the whole two-level front
+  * ``front_full`` replaces ``_kernel_full`` and the row sort that
+    ``front_all_pallas`` runs on its output (the whole two-level front
     table of a ray: supercluster slab, the jj nearest parents as packed
-    keys, member expansion, packed candidate keys);
+    keys, member expansion, and the kk smallest packed candidate keys in
+    ascending order, selected inside the kernel);
   * ``front_slab_extract`` replaces ``_kernel`` (the supercluster slab
     and the jj nearest parents only).
-``front_all`` and ``slab_extract`` add what the JAX wrappers
-``front_all_pallas`` and ``slab_extract_pallas`` do outside their
-kernels: one row sort of the candidate keys, the cut to kk, and the
-decoding of keys into (t, id).
+``front_all`` and ``slab_extract`` add what is left of the JAX wrappers
+``front_all_pallas`` and ``slab_extract_pallas``: the decoding of keys
+into (t, id).
 
 The kernels are in ``csrc/front.cu``, compiled with ``nvcc`` at first use
 into ``build/torch_kernels/`` and bound with ctypes. A wrapper given CPU
@@ -30,9 +31,17 @@ of tnear = 0 is a float denormal.
 
 NaN. Empty table slots hold NaN bounds and must miss: the plain versions
 use ``torch.minimum``/``torch.maximum``, which propagate NaN (never
-``fmin``/``fmax``), and the kernels write the same rule out. Member
+``fmin``/``fmax``), and the kernels make such a box a miss by
+construction (the NaN rule of ``csrc/front.cu``). Member
 slots keep their NaN; the JAX wrapper's far point boxes exist only
 because its one-hot matmul cannot carry NaN. Both decode to T_MAX.
+
+Selection. Keys are unique (the column rides in the low bits), so the kk
+smallest candidate keys in ascending order are ``sort(keys)[:, :kk]`` to
+the bit, whatever selects them: ``front_full_plain(kk=)`` sorts; the
+kernel pops the pending keys from per-lane sorted windows and places the
+far ones (3.4e38 with their column, in column order) by ballot. Given kk > jj * SC the
+prefix is the whole sorted row, as in the JAX wrapper.
 """
 from __future__ import annotations
 
@@ -65,7 +74,7 @@ def build() -> ctypes.CDLL:
     out, build_log = compile_shared(CSRC / "front.cu", find_nvcc(), NVCC_FLAGS, "front")
     lib = ctypes.CDLL(str(out))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.front_full_launch.argtypes = [vp] * 7 + [i32] * 6 + [vp, vp, vp]
+    lib.front_full_launch.argtypes = [vp] * 7 + [i32] * 7 + [vp, vp, vp]
     lib.front_full_launch.restype = i32
     lib.front_slab_extract_launch.argtypes = [vp] * 5 + [i32] * 4 + [vp, vp]
     lib.front_slab_extract_launch.restype = i32
@@ -123,7 +132,7 @@ def decode_keys(keys, nbits: int):
 # argument checks
 # ---------------------------------------------------------------------------
 
-def _check(sc_bmin, sc_bmax, p, d, t_limit, jj, members=None):
+def _check(sc_bmin, sc_bmax, p, d, t_limit, jj, members=None, kk=None):
     k2 = sc_bmin.shape[0]
     n = p.shape[0]
     want = [("sc_bmin", sc_bmin, (k2, 3)), ("sc_bmax", sc_bmax, (k2, 3)),
@@ -140,10 +149,12 @@ def _check(sc_bmin, sc_bmax, p, d, t_limit, jj, members=None):
         raise ValueError("tables, rays and t_limit must lie on one device")
     if not 1 <= jj <= k2:
         raise ValueError(f"jj must be in [1, K2 = {k2}], got {jj}")
+    if kk is not None and kk < 1:
+        raise ValueError(f"kk must be >= 1, got {kk}")
     if p.is_cuda:
         if not all(x.is_contiguous() for x in tensors):
             raise ValueError("the CUDA kernels take contiguous tensors")
-        shared = ((6 + _WARPS) * k2 + _WARPS * jj) * 4
+        shared = (6 * k2 + _WARPS * jj) * 4
         if shared > MAX_SHARED:
             raise ValueError(
                 f"K2 = {k2} superclusters need {shared} bytes of shared memory per "
@@ -202,17 +213,19 @@ def front_slab_extract_plain(sc_bmin, sc_bmax, p, d, t_limit, jj: int):
     return out
 
 
-def front_full_plain(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj: int):
+def front_full_plain(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj: int,
+                     kk: int | None = None):
     """Plain PyTorch version of ``front_full``: (packed parent keys
-    (N, jj), packed candidate keys (N, jj * SC)), both int32; candidate
-    column = j * SC + s, unsorted."""
-    _check(sc_bmin, sc_bmax, p, d, t_limit, jj, members=(mb_min, mb_max))
+    (N, jj), packed candidate keys), both int32. Without kk the candidate
+    keys are (N, jj * SC), column = j * SC + s, unsorted; given kk, the
+    min(kk, jj * SC) smallest of each row, ascending."""
+    _check(sc_bmin, sc_bmax, p, d, t_limit, jj, members=(mb_min, mb_max), kk=kk)
     k2, sc = mb_min.shape[0], mb_min.shape[1]
     nbits_p = parent_key_bits(k2)
     nbits_c = key_bits(jj * sc)
     n = p.shape[0]
     out_p = torch.empty((n, jj), dtype=torch.int32, device=p.device)
-    out_c = torch.empty((n, jj * sc), dtype=torch.int32, device=p.device)
+    out_c = torch.empty((n, _cand_width(jj * sc, kk)), dtype=torch.int32, device=p.device)
     for r0 in range(0, n, RAY_CHUNK):
         s = slice(r0, r0 + RAY_CHUNK)
         pk, inv = _parents_plain(sc_bmin, sc_bmax, p[s], d[s], t_limit[s], jj, nbits_p)
@@ -224,8 +237,16 @@ def front_full_plain(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj: int):
         hit = ((tn <= tf) & (tf >= 0.0) & valid[:, :, None]
                & (tn < t_limit[s][:, None, None]) & (tn < 1e37))
         cand = torch.where(hit, clamp0(tn), T_MAX)
-        out_c[s] = pack_keys(cand.reshape(-1, jj * sc), nbits_c)
+        ck = pack_keys(cand.reshape(-1, jj * sc), nbits_c)
+        if kk is not None:
+            ck = torch.sort(ck, dim=1).values[:, : out_c.shape[1]]
+        out_c[s] = ck
     return out_p, out_c
+
+
+def _cand_width(width: int, kk: int | None) -> int:
+    """Columns of the candidate keys: all of them, or the kk smallest."""
+    return width if kk is None else min(kk, width)
 
 
 # ---------------------------------------------------------------------------
@@ -254,21 +275,25 @@ def front_slab_extract(sc_bmin, sc_bmax, p, d, t_limit, jj: int):
     return out_p
 
 
-def front_full(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj: int):
-    """(packed parent keys (N, jj), packed candidate keys (N, jj * SC)):
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+def front_full(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj: int,
+               kk: int | None = None):
+    """(packed parent keys (N, jj), packed candidate keys): the candidate
+    keys by column (N, jj * SC) without kk, or given kk the min(kk,
+    jj * SC) smallest of each row, ascending. The CUDA kernel for CUDA
+    tensors (given kk, it selects them itself), the plain version for CPU
+    tensors."""
     if not p.is_cuda:
-        return front_full_plain(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj)
-    _check(sc_bmin, sc_bmax, p, d, t_limit, jj, members=(mb_min, mb_max))
+        return front_full_plain(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj, kk)
+    _check(sc_bmin, sc_bmax, p, d, t_limit, jj, members=(mb_min, mb_max), kk=kk)
     lib = build()
     n, k2, sc = p.shape[0], mb_min.shape[0], mb_min.shape[1]
     out_p = torch.empty((n, jj), dtype=torch.int32, device=p.device)
-    out_c = torch.empty((n, jj * sc), dtype=torch.int32, device=p.device)
+    out_c = torch.empty((n, _cand_width(jj * sc, kk)), dtype=torch.int32, device=p.device)
     if n == 0:
         return out_p, out_c
     err = lib.front_full_launch(
         sc_bmin.data_ptr(), sc_bmax.data_ptr(), mb_min.data_ptr(), mb_max.data_ptr(),
-        p.data_ptr(), d.data_ptr(), t_limit.data_ptr(), n, k2, jj, sc,
+        p.data_ptr(), d.data_ptr(), t_limit.data_ptr(), n, k2, jj, sc, kk or 0,
         parent_key_bits(k2), key_bits(jj * sc), out_p.data_ptr(), out_c.data_ptr(),
         torch.cuda.current_stream(p.device).cuda_stream,
     )
@@ -294,14 +319,14 @@ def slab_extract(sc_bmin, sc_bmax, p, d, t_limit, jj: int = 16, plain: bool = Fa
 def front_all(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj: int = 16,
               kk: int = 32, plain: bool = False):
     """The whole two-level front table, as ``front_all_pallas``: returns
-    (ttbl (N, kk) float32, col (N, kk) int32 in [0, jj * SC), parent_t
-    (N, jj) float32, parent_id (N, jj) int32). The candidate keys are
-    sorted per row outside the kernel, as the JAX wrapper sorts them.
-    Decode cluster ids with ``cluster_traverse._reconstruct_ids``.
-    plain=True takes the plain version on any device."""
+    (ttbl (N, kk') float32, col (N, kk') int32 in [0, jj * SC), parent_t
+    (N, jj) float32, parent_id (N, jj) int32), kk' = min(kk, jj * SC).
+    ``front_full`` selects the kk nearest candidates (the kernel inside
+    itself, where the JAX wrapper sorts the kernel's rows). Decode
+    cluster ids with ``cluster_traverse._reconstruct_ids``. plain=True
+    takes the plain version on any device."""
     fn = front_full_plain if plain else front_full
-    pk, ck = fn(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj)
-    ck = torch.sort(ck, dim=1).values[:, :kk]
+    pk, ck = fn(sc_bmin, sc_bmax, mb_min, mb_max, p, d, t_limit, jj, kk)
     pt, pid = decode_keys(pk, parent_key_bits(sc_bmin.shape[0]))
     ct, col = decode_keys(ck, key_bits(jj * mb_min.shape[1]))
     return ct, col, pt, pid

@@ -12,7 +12,11 @@ kernels for Hopper and their plain PyTorch versions.
     (the JAX package's ``chunk_fn``: live gate, row gather, ``_mt_rows``,
     masked state update) over W front-table columns: W = 1 in the wave
     loop, W = W0 in the dense head. The JAX package has no Pallas kernel
-    for it.
+    for it. The kernel gates G rays a warp, a lane a ray (G from
+    ``gate_plan``), fetches each cluster's row once for the rays of a
+    warp that want it in a column, and shares a block's groups out to
+    all its warps; ``wave_mt_plain(gate=G)`` walks the same
+    decomposition on any device.
   * ``wave_sweep`` is the exact fallback: every cluster of the table for
     a list of rays (the ``cand_base`` form of ``_mt_rows``).
 
@@ -27,6 +31,20 @@ of every ray) in place, and so do their plain versions. The plain
 versions compact the rays that have work by index, which costs a host
 sync; the kernels meet every ray and leave a dead one untouched, which
 costs none. Both give the same state.
+
+Why a wave may be grouped in any way. Every live column of a ray is
+tested against the best t the ray had at the call, and among the hits
+below it the winner is the least (t, w * C + lane) in lexicographic
+order: ``mt_rows`` over all W columns at once takes the minimum t and
+the first flat index at it. A minimum over a set does not depend on how
+the set is cut: the kernel cuts a ray's pairs by column and, inside a
+column, shares each fetched row among the rays of a warp that want that
+cluster, takes each (ray, column) winner with a warp reduction in
+whichever warp of the block took the group, and merges the winners in
+the ray's slot. ``wave_mt_plain(gate=G)``
+cuts them the same way (rays in warps of G, grouped by cluster per
+column, a row gathered once a group, the minima merged) and equals the
+uncut walk to the bit.
 
 Why the fallback may be swept in any order. ``wave_sweep_plain`` walks
 the clusters in ascending blocks of CC, the last block overlapping the
@@ -55,10 +73,13 @@ FB_ELEMS = 1 << 24   # (ray, triangle) pairs per step of wave_sweep_plain:
                      # 64 MB a float32 temporary of the MT; 64 clusters a
                      # step at FB_RAYS rays, every cluster at once for a few
 VARIANTS = ("direct", "staged")
+GATES = (32, 16, 8)  # rays a warp that wave_mt's gate takes, the widest first
+MT_WARPS = 8         # csrc/wave.cu MT_WARPS: warps a block of wave_mt
 
 LAUNCHES = {"row_gather": 0, "wave_mt": 0, "wave_sweep": 0}
 
 _lib = None
+_resident = {}  # device index -> (SMs, wave_mt blocks resident on an SM)
 build_log = ""  # nvcc's output (ptxas register and shared-memory report)
 
 
@@ -71,10 +92,12 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.row_gather_launch.argtypes = [vp, vp, i32, vp, i32, vp]
-    lib.wave_mt_launch.argtypes = [vp, vp, vp, i32, vp, vp, i64, i64, i32, i32, i32,
+    lib.wave_mt_blocks_per_sm.argtypes = [vp]
+    lib.wave_mt_launch.argtypes = [vp, vp, vp, i32, vp, vp, i64, i64, i32, i32, i32, i32,
                                    vp, vp, vp, vp]
     lib.wave_sweep_launch.argtypes = [vp, vp, vp, i32, vp, i32, vp, vp, vp, vp, vp]
-    for fn in (lib.row_gather_launch, lib.wave_mt_launch, lib.wave_sweep_launch):
+    for fn in (lib.row_gather_launch, lib.wave_mt_blocks_per_sm, lib.wave_mt_launch,
+               lib.wave_sweep_launch):
         fn.restype = i32
     _lib = lib
     return lib
@@ -268,19 +291,76 @@ def live_columns(col_t, best_t, best_c, any_hit: bool):
     return live & (best_c < 0) if any_hit else live
 
 
+def gate_plan(n: int, sms: int, blocks_per_sm: int) -> dict:
+    """How ``wave_mt`` cuts n rays over warps: G rays a warp, the widest
+    of GATES that still gives at least one wave of resident warps
+    (``resident_warps`` = sms x blocks_per_sm x MT_WARPS), so that a
+    dense wave keeps every SM busy; the narrowest when no width does. A
+    wider gate makes a sparse wave cheaper (fewer warps meet it) and
+    shares more rows."""
+    resident_warps = sms * blocks_per_sm * MT_WARPS
+    g = next((g for g in GATES if -(-n // g) >= resident_warps), GATES[-1])
+    warps = -(-n // g)
+    return {"g": g, "warps": warps, "blocks": -(-warps // MT_WARPS),
+            "resident_warps": resident_warps}
+
+
+def resident(lib, dev: torch.device):
+    """(SMs, wave_mt blocks resident on an SM) of a CUDA device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _resident:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            err = lib.wave_mt_blocks_per_sm(ctypes.byref(blocks))
+        if err != 0 or blocks.value < 1:
+            raise RuntimeError(f"wave_mt occupancy query failed: cudaError {err}")
+        _resident[idx] = (torch.cuda.get_device_properties(idx).multi_processor_count,
+                          blocks.value)
+    return _resident[idx]
+
+
+def _gated_columns(col_t, col_c, best_t, best_c, any_hit, k):
+    """wave_mt's gate, (n, w): a live column whose id also lies in
+    [0, k), the only ids the kernel ever uses as an address."""
+    return live_columns(col_t, best_t, best_c, any_hit) & (col_c >= 0) & (col_c < k)
+
+
+def wave_groups(col_t, col_c, best_t, best_c, any_hit, k: int, g: int):
+    """Rows ``wave_mt`` fetches with a gate of g rays a warp: one for each
+    (warp, column, cluster) that holds a live column."""
+    live = _gated_columns(col_t, col_c, best_t, best_c, any_hit, k)
+    ray, w = live.nonzero(as_tuple=True)
+    keys = ((ray // g) * col_t.shape[1] + w) * k + col_c[ray, w].long()
+    return int(torch.unique(keys).numel())
+
+
 def _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l):
     named = _check_state(p, d, best_t, best_c, best_l)
     _check_columns(col_t, col_c, p.shape[0])
     _check_table(table, named, strided=[("col_t", col_t), ("col_c", col_c)])
 
 
+def _check_gate(gate):
+    if gate is not None and gate not in GATES:
+        raise ValueError(f"gate must be one of {GATES}, got {gate}")
+
+
 def wave_mt_plain(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
-                  chunk: int = WAVE_CHUNK):
+                  chunk: int = WAVE_CHUNK, gate: int | None = None):
     """Plain PyTorch version of ``wave_mt``: the rays with a live column,
     compacted by index (a host sync), ``chunk`` at a time: gate, masked
     row gather (a dead column reads row 0 and is masked), ``mt_rows``,
-    and the winners written back by index."""
+    and the winners written back by index.
+
+    gate=G walks the kernel's decomposition instead: rays in warps of G,
+    per column the live rays of a warp grouped by cluster and each
+    group's row gathered once, ``mt_rows`` of every (ray, column) against
+    the best t of the call, and each ray's winners merged by the least
+    (t, w * C + lane). It gives the same state (see the module's note)."""
     _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l)
+    _check_gate(gate)
+    if gate is not None:
+        return _wave_mt_gated(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, gate)
     C = table.shape[2]
     idx = live_columns(col_t, best_t, best_c, any_hit).any(dim=1).nonzero()[:, 0]
     for i0 in range(0, idx.shape[0], chunk):
@@ -294,7 +374,41 @@ def wave_mt_plain(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
         best_t[sel], best_c[sel], best_l[sel] = new
 
 
-def wave_mt(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l):
+def _wave_mt_gated(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, g):
+    K, _, C = table.shape
+    n, W = col_t.shape
+    live = _gated_columns(col_t, col_c, best_t, best_c, any_hit, K)
+    start = best_t.clone()  # every column meets the best t of the call
+    win_t = torch.full((n,), T_MAX, dtype=torch.float32, device=p.device)
+    win_flat = torch.full((n,), 1 << 30, dtype=torch.int32, device=p.device)
+    win_c = torch.full((n,), -1, dtype=torch.int32, device=p.device)
+    warp = torch.arange(n, device=p.device) // g
+    for w in range(W):
+        sel = live[:, w].nonzero()[:, 0]
+        if sel.numel() == 0:
+            continue
+        cid = col_c[sel, w]
+        groups, member = torch.unique(warp[sel] * K + cid.long(), return_inverse=True)
+        rows = table[groups % K]                      # one row a group
+        m = sel.shape[0]
+        fresh = (start[sel], torch.full((m,), -1, dtype=torch.int32, device=p.device),
+                torch.zeros((m,), dtype=torch.int32, device=p.device))
+        t, c, lane = mt_rows(p[sel], d[sel], rows[member][:, None], fresh,
+                             torch.ones((m,), dtype=torch.bool, device=p.device),
+                             cand_cids=cid[:, None])
+        flat = w * C + lane
+        take = (c >= 0) & ((t < win_t[sel]) | ((t == win_t[sel]) & (flat < win_flat[sel])))
+        win_t[sel] = torch.where(take, t, win_t[sel])
+        win_flat[sel] = torch.where(take, flat, win_flat[sel])
+        win_c[sel] = torch.where(take, c, win_c[sel])
+    won = win_c >= 0
+    best_t.copy_(torch.where(won, win_t, best_t))
+    best_c.copy_(torch.where(won, win_c, best_c))
+    best_l.copy_(torch.where(won, win_flat % C, best_l))
+
+
+def wave_mt(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
+            gate: int | None = None):
     """One wave over W front-table columns, the state updated in place.
 
     p, d (N, 3); table (K, 9, C); col_t (N, W) float32 tnear and col_c
@@ -303,18 +417,22 @@ def wave_mt(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l):
     live column of a ray (col_t < best_t, col_t < T_MAX, and best_c < 0
     when any_hit) is tested against the best t the ray had at the call;
     the minimum t wins, among equal t the lowest w * C + lane. The CUDA
-    kernel for CUDA tensors, ``wave_mt_plain`` for CPU tensors."""
+    kernel for CUDA tensors, with G rays a warp from ``gate_plan`` unless
+    ``gate`` names one of GATES; ``wave_mt_plain`` for CPU tensors."""
     if not p.is_cuda:
-        return wave_mt_plain(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l)
+        return wave_mt_plain(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
+                             gate=gate)
     _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l)
+    _check_gate(gate)
     lib = build()
     n = p.shape[0]
     if n == 0:
         return
+    g = gate or gate_plan(n, *resident(lib, p.device))["g"]
     err = lib.wave_mt_launch(
         p.data_ptr(), d.data_ptr(), table.data_ptr(), table.shape[0],
         col_t.data_ptr(), col_c.data_ptr(), col_t.stride(0), col_c.stride(0),
-        col_t.shape[1], int(bool(any_hit)), n,
+        col_t.shape[1], int(bool(any_hit)), n, g,
         best_t.data_ptr(), best_c.data_ptr(), best_l.data_ptr(), _stream(p),
     )
     if err != 0:

@@ -24,19 +24,34 @@
 //   wave_mt     the body of one wave of the tracer (the JAX package's
 //               cluster_traverse.py chunk_fn: live gate, row gather,
 //               _mt_rows, masked state update), which has no Pallas kernel
-//               behind it. One warp per ray. The warp reads the ray's
-//               best t ONCE, tests each of its W table columns (live:
-//               tnear < best_t, tnear < T_MAX and, for an any-hit trace,
-//               no hit yet), and leaves at once when none is live: the
-//               host needs no list of live rays. For a live column it
-//               fetches that cluster's row; lane l tests triangles l,
-//               l + 32, l + 64, l + 96 with the Moller-Trumbore
-//               arithmetic of csrc/mt.cu in the same order of operations
-//               and accepts a hit only on t < best_t. The warp's winner is
-//               the minimum t and, among equal t, the lowest flat index
-//               w * 128 + triangle: two integer warp reductions
-//               (t >= 0, so its float bits order as integers). Lane 0
-//               writes (t, cluster, triangle) over the ray's state.
+//               behind it. A warp takes G consecutive rays (G = 8, 16 or
+//               32, from the host's plan), a lane a ray for the gate: the
+//               lane reads its ray's best t ONCE and, for each of the W
+//               table columns, the tnear and the cluster id; a column is
+//               live when tnear < best_t, tnear < T_MAX, the id lies in
+//               [0, K) and, for an any-hit trace, the ray has no hit yet.
+//               A block whose rays are all dead leaves after those loads,
+//               so a sparse wave costs one pass over ~12 bytes a ray and
+//               column. Per column, __match_any_sync groups a warp's live
+//               lanes by cluster id, and each group becomes an item of the
+//               block's list in shared memory (the lanes' origin,
+//               direction and best t beside it). The block's warps then
+//               take items from that list until it is empty: the warp that
+//               takes one fetches the group's row ONCE (lane l holds
+//               triangles l, l + 32, l + 64, l + 96) and walks the group's
+//               rays, each ray's inputs a broadcast read; the lanes test
+//               their four triangles with the Moller-Trumbore arithmetic
+//               of csrc/mt.cu in the same order of operations, accepting a
+//               hit only on t < best t, and the ray's winner for that
+//               column is the minimum t and, among equal t, the lowest
+//               flat index w * 128 + triangle: two integer warp reductions
+//               (t >= 0, so its float bits order as integers). The least
+//               (t, flat) over the ray's columns is kept in its slot and
+//               written once at the end. That is the minimum over every
+//               live (column, triangle) pair of the ray, which depends
+//               neither on how the rays were grouped nor on which warp
+//               took which group in what order: the result is the
+//               one-warp-per-ray walk's to the bit.
 //   wave_sweep  the exact fallback: for each of m listed rays, every
 //               cluster of the table. The plain version walks the
 //               clusters in ascending blocks and carries a strict
@@ -59,7 +74,21 @@
 // wave are scattered over the table, but each is 36 full 128-byte lines,
 // so the fetch is as coalesced as a row-major copy; a table of tens of
 // megabytes (26.7 MB for 5,803 clusters) stays in the 50 MB L2 after its
-// first touch.
+// first touch. For wave_mt the least is each DISTINCT cluster's row once
+// (the table is one input) plus ~12 bytes of gate a ray and column; what
+// it reads is each group's row once, where a group is the rays of one
+// warp that want one cluster in one column: in a dense wave of rays in
+// pixel order neighbouring rays share clusters (terrain camera rays, wave
+// 1: ~6.6 rays a group at G = 16), and a warp of G rays reads a shared row
+// once instead of once a ray. What its design does about the rest: a lane
+// per ray for the gate, so a sparse wave meets n / G warps instead of n;
+// the groups of a block shared out among its warps, so rays that are live
+// together (neighbours, in pixel order) are not tested one after the
+// other by one warp; and G chosen from n and the card's resident warps.
+// What holds a dense wave in practice is instruction issue, not bytes: a
+// pair is 338 instructions as compiled (cuobjdump), an issue floor of
+// 0.012 ms for terrain wave 1 of 65,536 rays on an H100 at 1,980 MHz,
+// which no grouping removes; the measured time is 2-3x that floor.
 //
 // Exactness: compiled with --fmad=false and IEEE division, no fast
 // math, so t equals the plain PyTorch version's bit for bit. A winning t
@@ -86,7 +115,7 @@ constexpr int GATHER_WARPS = 8;        // row_gather direct: rows per block
 constexpr int STAGED_WARPS = 4;        // row_gather staged: warps per block
 constexpr int NBUF = 4;                // ring slots (copies in flight) per warp
 constexpr int STAGED_ROWS = 8;         // rows a warp walks through its ring
-constexpr int MT_WARPS = 8;            // wave_mt: rays per block
+constexpr int MT_WARPS = 8;            // wave_mt: warps per block (G rays each)
 constexpr int SWEEP_WARPS = 8;         // wave_sweep: warps per block
 constexpr int SWEEP_BLOCKS = 1056;     // wave_sweep: blocks aimed at (8 per SM)
 
@@ -261,46 +290,110 @@ row_gather_staged_kernel(const int* __restrict__ idx, const float* __restrict__ 
 // wave_mt
 // ---------------------------------------------------------------------------
 
+// Warp v takes rays [v * g, v * g + g); lane l < g gates ray v * g + l,
+// whose slot in the block is threadIdx.x. Per column, each warp's groups
+// go into the block's list of items; every warp of the block then takes
+// items from the list until it is empty (the processing is shared by the
+// block, so a warp whose rays are all live does not work alone). Every
+// branch on a ballot, a match, an item or a group is uniform over the
+// warp, and every thread reaches every __syncthreads.
+// The rays of one group against its row v (column j): each ray's winner
+// merged into its slot. Only the calling warp holds these rays in this
+// column.
+__device__ __forceinline__ void test_group(const float (&v)[COMPS][PER_LANE], int lane, int j,
+                                           int gc, int base, unsigned rays,
+                                           const float (*s_ray)[7], int (*s_win)[MT_WARPS * 32]) {
+  for (; rays != 0u; rays &= rays - 1u) {
+    const int q = base + __ffs(rays) - 1;
+    const float* r = s_ray[q];
+    LaneBest best;
+    test_row(v, lane, j * C, r[0], r[1], r[2], r[3], r[4], r[5], r[6], best);
+    int flat;
+    const int mb = warp_winner(best, flat);
+    if (lane == 0 && (mb < s_win[0][q] || (mb == s_win[0][q] && flat < s_win[1][q]))) {
+      s_win[0][q] = mb;  // the ray's least (t, flat) over its columns
+      s_win[1][q] = flat;
+      s_win[2][q] = gc;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(MT_WARPS * 32)
 wave_mt_kernel(const float* __restrict__ p, const float* __restrict__ d,
                const float* __restrict__ table, int k,
                const float* __restrict__ col_t, const int* __restrict__ col_c,
-               long long stride_t, long long stride_c, int w, int any_hit, int n,
+               long long stride_t, long long stride_c, int w, int any_hit, int n, int g,
                float* best_t, int* best_c, int* best_l) {
-  const int ray = blockIdx.x * MT_WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (ray >= n) return;  // uniform over the warp, as is every branch below
-  const float bt = best_t[ray];  // read once: every column meets this value
-  if (any_hit && best_c[ray] >= 0) return;
-  const float* ct = col_t + static_cast<size_t>(ray) * stride_t;
+  __shared__ float s_ray[MT_WARPS * 32][7];     // origin, direction, best t at the call
+  __shared__ int s_win[3][MT_WARPS * 32];       // the ray's least (t bits, flat), cluster
+  __shared__ int s_cid[MT_WARPS * 32];          // items: a group's cluster,
+  __shared__ unsigned s_rays[MT_WARPS * 32];    // its lanes
+  __shared__ int s_owner[MT_WARPS * 32];        // and their warp
+  __shared__ int s_items, s_next;
+
+  const int slot = threadIdx.x;
+  const int warp = slot >> 5;
+  const int lane = slot & 31;
+  const long long at = static_cast<long long>(blockIdx.x * MT_WARPS + warp) * g + lane;
+  const bool mine = lane < g && at < n;
+  const int ray = mine ? static_cast<int>(at) : 0;
+  float bt = 0.f;  // the ray's best t, read once: every column meets this value
+  bool open = false;
+  if (mine) {
+    bt = best_t[ray];
+    open = !(any_hit && best_c[ray] >= 0);
+  }
+  const float* ct = col_t + static_cast<size_t>(ray) * stride_t;  // read only when open
   const int* cc = col_c + static_cast<size_t>(ray) * stride_c;
-  float px = 0.f, py = 0.f, pz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  s_win[0][slot] = __float_as_int(T_MAX);
+  s_win[1][slot] = INT_MAX;  // no hit yet
+  s_win[2][slot] = -1;
+  if (slot == 0) s_items = s_next = 0;
   bool loaded = false;
-  LaneBest best;
+  __syncthreads();
   for (int j = 0; j < w; ++j) {
-    const float tn = ct[j];
-    if (!(tn < bt && tn < T_MAX)) continue;
     // the id of a dead column is arbitrary; one of a live column lies in
     // [0, k), and nothing else is ever used as an address
-    const int cid = cc[j];
-    if (cid < 0 || cid >= k) continue;
-    if (!loaded) {
-      px = p[3 * ray], py = p[3 * ray + 1], pz = p[3 * ray + 2];
-      dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
+    int cid = -1;
+    if (open) {
+      const float tn = ct[j];
+      const int c = cc[j];  // read beside tnear: one round trip, not two
+      if (tn < bt && tn < T_MAX && c >= 0 && c < k) cid = c;
+    }
+    if (cid >= 0 && !loaded) {
+      s_ray[slot][0] = p[3 * ray], s_ray[slot][1] = p[3 * ray + 1];
+      s_ray[slot][2] = p[3 * ray + 2], s_ray[slot][3] = d[3 * ray];
+      s_ray[slot][4] = d[3 * ray + 1], s_ray[slot][5] = d[3 * ray + 2];
+      s_ray[slot][6] = bt;
       loaded = true;
     }
-    float v[COMPS][PER_LANE];
-    fetch_row(table + static_cast<size_t>(cid) * ROW, lane, v);
-    test_row(v, lane, j * C, px, py, pz, dx, dy, dz, bt, best);
+    const unsigned same = __match_any_sync(FULL, cid);  // the lanes that want my cluster
+    if (cid >= 0 && __ffs(same) - 1 == lane) {          // a group's first lane lists it
+      const int it = atomicAdd(&s_items, 1);
+      s_cid[it] = cid;
+      s_rays[it] = same;
+      s_owner[it] = warp;
+    }
+    __syncthreads();
+    const int items = s_items;
+    for (;;) {
+      int it = 0;
+      if (lane == 0) it = atomicAdd(&s_next, 1);
+      it = __shfl_sync(FULL, it, 0);
+      if (it >= items) break;
+      float v[COMPS][PER_LANE];
+      fetch_row(table + static_cast<size_t>(s_cid[it]) * ROW, lane, v);  // once a group
+      test_group(v, lane, j, s_cid[it], s_owner[it] * 32, s_rays[it], s_ray, s_win);
+    }
+    __syncthreads();  // every item of this column is done
+    if (slot == 0) s_items = s_next = 0;
+    __syncthreads();
   }
-  if (!loaded) return;
-  int flat;
-  const int mb = warp_winner(best, flat);
-  if (!(__int_as_float(mb) < bt)) return;
-  if (lane == 0) {
-    best_t[ray] = __int_as_float(mb);
-    best_c[ray] = cc[flat / C];
-    best_l[ray] = flat % C;
+  // every accepted hit has t < bt; no hit leaves flat at INT_MAX
+  if (mine && s_win[1][slot] != INT_MAX) {
+    best_t[ray] = __int_as_float(s_win[0][slot]);
+    best_c[ray] = s_win[2][slot];
+    best_l[ray] = s_win[1][slot] % C;
   }
 }
 
@@ -381,16 +474,26 @@ extern "C" int row_gather_launch(const int* idx, const float* table, int r, floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// wave_mt blocks (of MT_WARPS warps) resident on one SM of the current
+// device: the host's gate plan reads it once a device.
+extern "C" int wave_mt_blocks_per_sm(int* blocks) {
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wave_mt_kernel, MT_WARPS * 32, 0));
+}
+
 // p, d (n, 3); table (k, 9, 128); col_t, col_c: w columns of n rows with
 // unit column stride and the given row strides (in elements); best_t,
-// best_c, best_l (n,), updated in place.
+// best_c, best_l (n,), updated in place; g (8, 16 or 32) rays a warp.
 extern "C" int wave_mt_launch(const float* p, const float* d, const float* table, int k,
                               const float* col_t, const int* col_c, long long stride_t,
-                              long long stride_c, int w, int any_hit, int n, float* best_t,
-                              int* best_c, int* best_l, void* stream) {
-  wave_mt_kernel<<<(n + MT_WARPS - 1) / MT_WARPS, MT_WARPS * 32, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      p, d, table, k, col_t, col_c, stride_t, stride_c, w, any_hit, n, best_t, best_c, best_l);
+                              long long stride_c, int w, int any_hit, int n, int g,
+                              float* best_t, int* best_c, int* best_l, void* stream) {
+  if (g != 8 && g != 16 && g != 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = (n + g - 1) / g;
+  const int blocks = (warps + MT_WARPS - 1) / MT_WARPS;
+  wave_mt_kernel<<<blocks, MT_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, d, table, k, col_t, col_c, stride_t, stride_c, w, any_hit, n, g, best_t, best_c,
+      best_l);
   return static_cast<int>(cudaGetLastError());
 }
 
