@@ -5,13 +5,18 @@
     python3 chip_smoke.py --profile  # every phase, plus a torch.profiler
                                      # trace of one pass of each render
     python3 chip_smoke.py --upto 3   # stop after phase 3 (no result line)
+    python3 chip_smoke.py --sweep-timing [--m 24,25] [--package DIR]
+                                     # only wave_sweep at phase 7's shapes
+                                     # (of the port in DIR: another checkout)
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: csrc/mt.cu, csrc/front.cu and csrc/wave.cu with nvcc and the
      native BVH builder csrc/bvh_builder.cpp with g++, all started
      together; the ptxas report, and the instructions of the MT kernels'
-     inner loops as compiled (cuobjdump -sass);
+     inner loops, wave_mt's loop over a group's rays and wave_sweep's
+     loops (a warp's rows in the warp layout, a thread's staged quads in
+     the other) as compiled (cuobjdump -sass);
   3. kernel parity on the card, each kernel against its plain PyTorch
      version on 65,536 seeded rays: mt_closest and mt_anyhit on
      cornell_box and multi_bsdf_scene, also on 1 and 31 rays, on 262,144
@@ -38,12 +43,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      gate and at each gate forced, beside wave_mt_plain(gate=) walking the
      same decomposition; wave_sweep against wave_sweep_plain on 300 rays,
      and both on rays
-     that start on a triangle (a winning t of -0.0 is stored as +0.0):
-     t, cluster and lane equal bit for bit;
+     that start on a triangle (a winning t of -0.0 is stored as +0.0),
+     then on the terrain's table at m = 1, 8 (the warp layout), 33 (a
+     ragged tile) and 2,048 rays (rows staged) with best t T_MAX, short
+     and 0 (K = 5,803 is no multiple of the plan's range), on one
+     triangle met at equal t in two clusters that fall in different
+     ranges (clusters K.. copy 0..63), and on the table with the first
+     edge zeroed on a third of its quads and on single lanes (the quads
+     the staged kernel skips), beside wave_sweep_plain(plan=) walking the
+     same cut: t, cluster and lane equal bit for bit;
   4. tracer against oracle: intersect_clusters / occluded_clusters on the
      full-size terrain_scene against mt_closest / mt_anyhit over all its
      triangles, 65,536 camera and random rays: occlusion equal, tri equal
-     but for rays whose two t are bit-equal (exact ties, counted);
+     but for rays whose two t are bit-equal (exact ties, counted); then
+     the same with tracer_tune front_k 8, whose shallow table sends many
+     rays to the exact fallback (printed per trace);
   5. main path, through Renderer(..., device="cuda"): cornell_box
      256x256 and multi_bsdf_scene 512x512 with the brute tracer (as
      before), then terrain_scene 256x256 with use_bvh=True (hierarchical
@@ -60,8 +74,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   6. the whole path with the kernels against the whole path with their
      plain versions, both on the card: cornell_box 64x64 (MT kernels),
      terrain_scene 256x256 and multi_bsdf_scene 512x512 with the BVH
-     (front and wave kernels against plain=True), films equal to rtol
-     1e-5;
+     (front and wave kernels against plain=True), and terrain_scene
+     256x256 with front_k 8 (the fallback at many rays), films equal to
+     rtol 1e-5;
   7. kernel timing with CUDA events, beside each kernel's bound and its
      plain version's time: the MT kernels at 65,536 rays on both scenes
      and 262,144 on multi_bsdf_scene, beside the issue floor (the inner
@@ -75,7 +90,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and eighth wave of 65,536 rays and the first and fourth of 131,072
      rays on multi_bsdf_scene, beside three bounds (each distinct row
      once, each group's row once, every row from device memory);
-     wave_sweep at 8 rays x all clusters.
+     wave_sweep on the terrain's 5,803 clusters at 8 rays, at the mean
+     needy count of phase 4's front_k 8 traces (their rays and state) and
+     at 2,048 rays, beside its bytes bound (the table once), its
+     operations bound and its issue floor (the loop's instructions a
+     (ray, row) pair x pairs over 4 warp-instructions a clock on every
+     SM), both over the table's real triangles, not its pads; the floor
+     over every lane of every row beside it.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -83,6 +104,7 @@ line is {"ok": true, "device": {"platform": "gpu", ...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -190,6 +212,35 @@ def mixed_limits(seed, n, device):
     t[0::3] = T_MAX
     t[2::3] = 0.0
     return torch.from_numpy(t).to(device)
+
+
+def trace_inputs(terrain, device):
+    """The rays of phase 4's terrain traces and the any-hit limits (a
+    third 1e-6, the integrator's dead lanes)."""
+    p, d = terrain_rays(11, N_RAYS, terrain, device)
+    tmax = mixed_limits(12, N_RAYS, device)
+    tmax[0::3] = 1e-6
+    return p, d, tmax
+
+
+@contextlib.contextmanager
+def fallback_inputs(wave):
+    """Record each ``wave.wave_sweep`` call's listed rays and the state it
+    met (copies), then make the call. The tracer reaches the fallback
+    through the module, so this sees its calls in any version of the
+    package, which ``--sweep-timing --package`` needs."""
+    seen = []
+    sweep = wave.wave_sweep
+
+    def record(p, d, table, idx, best_t, best_c, best_l, **kw):
+        seen.append((idx.clone(), [best_t.clone(), best_c.clone(), best_l.clone()]))
+        return sweep(p, d, table, idx, best_t, best_c, best_l, **kw)
+
+    wave.wave_sweep = record
+    try:
+        yield seen
+    finally:
+        wave.wave_sweep = sweep
 
 
 def on_triangles(table, num, n, seed, dev):
@@ -568,6 +619,80 @@ def wave_parity(wave, ct, probe, cases, dev):
     return err
 
 
+def sweep_parity(wave, case, dev):
+    """wave_sweep against wave_sweep_plain on the terrain's table, bit for
+    bit: m = 1, 8 (the warp layout), 33 (a ragged tile) and 2,048 (rows
+    staged) listed rays aimed at its triangles, their best t mixed
+    (T_MAX, short, 0); one triangle met at equal t in two clusters that
+    fall in different ranges of the plan (clusters K.. copy 0..63; the
+    winner must be the lower cluster); and the table with the first edge
+    zeroed on a third of its quads and on single lanes (quads the staged
+    kernel skips, inside rows as well as at their ends); each beside
+    wave_sweep_plain(plan=) walking the same cut. Returns the largest
+    absolute t difference (0 when they agree)."""
+    name, data = case[:2]
+    table = data.bvh["cluster_rows"]
+    k = table.shape[0]
+    lib = wave.build()
+    err = 0.0
+    rs = np.random.RandomState(26)
+    ragged = False
+    # rays aimed at a triangle of a random cluster, from 0.5 to 3 away,
+    # their best t by thirds T_MAX, short, 0
+    ap, ad = aimed_rays(table, torch.from_numpy(rs.randint(0, k, size=2048)).to(dev), 28, dev)
+    every = torch.arange(2048, dtype=torch.int32, device=dev)
+    runs = [(f"{m} aimed rays on {name}", table, ap, ad, mixed_limits(29, 2048, dev),
+             every[:m].contiguous()) for m in (1, 8, 33, 2048)]
+    twin = torch.cat([table, table[:64]])
+    cid = torch.from_numpy(rs.randint(0, 64, size=2048).astype(np.int32)).to(dev)
+    tp, td = aimed_rays(twin, cid, 27, dev)
+    far = torch.full((2048,), T_MAX, dtype=torch.float32, device=dev)
+    runs += [(f"equal t in clusters c and K + c, {m} rays", twin, tp, td, far,
+              every[:m].contiguous()) for m in (8, 2048)]
+    holes = table.clone()
+    quads = torch.from_numpy(rs.rand(k, 32) < 1 / 3).to(dev).repeat_interleave(4, dim=1)
+    lanes = torch.from_numpy(rs.rand(k, 128) < 0.05).to(dev)
+    holes[:, 3:6] = torch.where((quads | lanes)[:, None], 0.0, holes[:, 3:6])
+    runs += [(f"{m} aimed rays, e0 zeroed on a third of the quads", holes, ap, ad, far,
+              every[:m].contiguous()) for m in (8, 2048)]
+    for label, tbl, rp, rd, lim, idx in runs:
+        m, kt = idx.shape[0], tbl.shape[0]
+        want = fresh_state(lim)
+        wave.wave_sweep_plain(rp, rd, tbl, idx, *want)
+        hits = int((want[1][idx.long()] >= 0).sum())
+        plan = wave.sweep_plan(m, kt, *wave.sweep_resident(lib, dev, wave.sweep_tile(m)))
+        got = fresh_state(lim)
+        wave.wave_sweep(rp, rd, tbl, idx, *got)
+        walked = fresh_state(lim)
+        wave.wave_sweep_plain(rp, rd, tbl, idx, *walked, plan=plan)
+        torch.cuda.synchronize()
+        bad = [int((bits(g) != bits(w)).sum()) if g.dtype == torch.float32
+               else int((g != w).sum()) for g, w in zip(got, want)]
+        same_walk = all(torch.equal(a, b) for a, b in zip(walked, want))
+        ragged |= kt % plan["per_block"] != 0
+        print(f"wave_sweep {label}: tile {plan['tile']}, {plan['splits']} ranges of "
+              f"{plan['per_block']} of {kt} clusters, {plan['blocks']} blocks; {hits} rays hit; "
+              f"mismatches t {bad[0]} cluster {bad[1]} lane {bad[2]}, plan walk "
+              + ("equal" if same_walk else "DIFFERS"), flush=True)
+        check(sum(bad) == 0, f"wave_sweep disagrees with its plain version on {label}")
+        check(same_walk, f"wave_sweep_plain(plan=) differs from the uncut walk on {label}")
+        err = max(err, float((got[0] - want[0]).abs().max()))
+        check(0 < hits, f"wave_sweep {label}: no ray hits, no test")
+        if tbl is twin:
+            sel = idx.long()
+            won = want[1][sel]  # a winner K + c loses to its copy c: equal t, lower index
+            check(bool((won < k).all()) and int((won == cid[sel]).sum()) > m // 4,
+                  f"{label}: the winner is not the lower of two equal clusters")
+            check(plan["splits"] > 1, f"{label}: one range, the twins are not split")
+        elif tbl is table:
+            start = lim[idx.long()]
+            check(m < 3 or ((start == T_MAX).any() and (start == 0).any()
+                            and ((start > 0) & (start < T_MAX)).any()),
+                  f"{label}: the starting best t are not mixed")
+    check(ragged, "no sweep met a table whose K is not a multiple of its range")
+    return err
+
+
 def pixel_rays(scene, dev):
     """One camera ray through the centre of every pixel, row by row."""
     from phosphorus_mk2_tpu_torch.core.camera import camera_to_params, generate_rays
@@ -606,17 +731,20 @@ def tied_columns(k, n, dev):
     return torch.from_numpy(cols).to(dev)
 
 
-def tracer_vs_oracle(mt, ct, terrain, data, dev):
-    """Phase 4: the cluster tracer on the full-size terrain against the
-    brute kernels over all its triangles."""
-    p, d = terrain_rays(11, N_RAYS, terrain, dev)
-    tmax = mixed_limits(12, N_RAYS, dev)
-    tmax[0::3] = 1e-6  # the integrator's dead lanes
+def tracer_vs_oracle(mt, ct, terrain, data, dev, tune):
+    """Phase 4: the cluster tracer on the full-size terrain, with the
+    tracer_tune ``tune``, against the brute kernels over all its
+    triangles. Returns (exact-t ties, fallback share, the rays and state
+    each call of the fallback met, p, d)."""
+    from phosphorus_mk2_tpu_torch.accel import wave
+
+    p, d, tmax = trace_inputs(terrain, dev)  # a third of tmax 1e-6: the dead lanes
     table = mt.tri_table(data)
     for k in ct.STATS:
         ct.STATS[k] = 0
-    got = ct.intersect_clusters(data, p, d)
-    occ = ct.occluded_clusters(data, p, d, tmax)
+    with fallback_inputs(wave) as seen:
+        got = ct.intersect_clusters(data, p, d, **tune)
+        occ = ct.occluded_clusters(data, p, d, tmax, **tune)
     torch.cuda.synchronize()
     counts = dict(ct.STATS)
     t, tri, _, _ = mt.mt_closest(table, p, d)
@@ -627,17 +755,19 @@ def tracer_vs_oracle(mt, ct, terrain, data, dev):
     bad_t = int((got["t"] != t).sum())
     bad_occ = int((occ != oref).sum())
     share = counts["fallback_rays"] / counts["rays"]
-    print(f"terrain_scene: {data.num_tris} tris, {N_RAYS} rays, {int((tri >= 0).sum())} hits, "
+    print(f"terrain_scene, tracer_tune {tune}: {data.num_tris} tris, {N_RAYS} rays, "
+          f"{int((tri >= 0).sum())} hits, "
           f"{int(oref.sum())} occluded; tri differs on {int(diff.sum())} rays, of which exact-t "
           f"ties {int(ties.sum())}, other {bad}; t differs on {bad_t}; occlusion differs on "
           f"{bad_occ}; exact-fallback rays {counts['fallback_rays']} of {counts['rays']} "
-          f"(share {share:.6f}); {counts['waves']} waves and {counts['syncs']} host syncs in "
-          f"{counts['traces']} traces", flush=True)
+          f"(share {share:.6f}; per trace, closest then any-hit: "
+          f"{[idx.shape[0] for idx, _ in seen]}); {counts['waves']} waves and {counts['syncs']} "
+          f"host syncs in {counts['traces']} traces", flush=True)
     check(bad == 0, f"the cluster tracer names another triangle than the oracle on {bad} rays")
     check(bad_t == 0, f"the cluster tracer's t differs from the oracle's on {bad_t} rays")
     check(bad_occ == 0, f"occluded_clusters disagrees with mt_anyhit on {bad_occ} rays")
     check(int(ties.sum()) <= N_RAYS // 1000, f"{int(ties.sum())} exact-t ties: too many to be ties")
-    return int(ties.sum()), share
+    return int(ties.sum()), share, seen, p, d
 
 
 def box_film_checks(film, name):
@@ -793,15 +923,18 @@ def whole_path_vs_plain(mt, pt, scenes, dev):
     check(np.allclose(films[0], films[1], rtol=1e-5, atol=0.0),
           f"kernel path film differs from the plain path film by {diff}")
 
-    for name, w, h, depth in (("terrain_scene", 256, 256, 4), ("multi_bsdf_scene", 512, 512, 9)):
+    for name, w, h, depth, tune in (("terrain_scene", 256, 256, 4, {}),
+                                    ("multi_bsdf_scene", 512, 512, 9, {}),
+                                    # a shallow front table: the fallback at many rays
+                                    ("terrain_scene", 256, 256, 4, {"front_k": 8})):
         films = []
-        for tune in (None, {"plain": True}):
+        for plain in (False, True):
             opts = pt.Options(use_bvh=True, samples_per_pixel=2, samples_per_pass=2,
-                              path_depth=depth, tracer_tune=tune)
+                              path_depth=depth, tracer_tune={**tune, "plain": plain})
             films.append(pt.Renderer(getattr(scenes, name)(width=w, height=h), opts,
                                      device="cuda").render()["color"])
         diff = float(np.abs(films[0] - films[1]).max())
-        print(f"{name} {w}x{h} 2 spp depth {depth} use_bvh=True: front and wave kernels vs "
+        print(f"{name} {w}x{h} 2 spp depth {depth} use_bvh=True {tune}: front and wave kernels vs "
               f"plain=True film max |diff| {diff:.3g}, mean {films[0].mean():.6f}", flush=True)
         check(np.allclose(films[0], films[1], rtol=1e-5, atol=0.0),
               f"{name}: the kernels' film differs from the plain=True film by {diff}")
@@ -912,9 +1045,10 @@ def anyhit_tests_needed(mt, table, p, d, tmax):
 
 
 def sass_loops(mt, wave):
-    """Phase 2: the MT kernels' inner loops and wave_mt's loop over a
-    group's rays as compiled, from cuobjdump -sass of the built
-    libraries; {} where the toolkit has no cuobjdump."""
+    """Phase 2: the MT kernels' inner loops, wave_mt's loop over a group's
+    rays and wave_sweep's loop over a warp's rows (one per tile width) as
+    compiled, from cuobjdump -sass of the built libraries; {} where the
+    toolkit has no cuobjdump."""
     from phosphorus_mk2_tpu_torch.accel.build import find_nvcc
 
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
@@ -923,20 +1057,25 @@ def sass_loops(mt, wave):
         return {}
     sass = "\n".join(subprocess.run([tool, "-sass", lib.build()._name], capture_output=True,
                                     text=True, timeout=120).stdout for lib in (mt, wave))
-    out = loop_counts(sass, mt.CLOSEST_RAYS)
+    out = loop_counts(sass, mt.CLOSEST_RAYS, wave.WARP_TILE, wave.STAGED_TILE)
     for kname, c in out.items():
         print(f"sass {kname}: inner loop {c['loop_instructions']} instructions for {c['tests']} "
-              f"tests, {c['per_test']:.2f} a test ({c['fp32']} FP32/MUFU, {c['lds']} LDS)",
+              f"tests, {c['per_test']:.2f} a test ({c['fp32']} FP32/MUFU, {c['lds']} LDS)"
+              + (f", {c['per_pair']:.1f} a (ray, row) pair" if "per_pair" in c else ""),
               flush=True)
     return out
 
 
-def loop_counts(sass, closest_rays):
+def loop_counts(sass, closest_rays, warp_tile, staged_tile):
     """Instructions of each MT kernel's innermost loop that holds the
     division (MUFU.RCP): mt_closest's column step (4 columns x
-    closest_rays rays), mt_anyhit's ray step (4 columns a lane) and
+    closest_rays rays), mt_anyhit's ray step (4 columns a lane),
     wave_mt's step over a group's rays (4 triangles a lane, the warp
-    reductions and the merge).
+    reductions and the merge), and wave_sweep's: a warp a tile of R rays,
+    its step over the warp's rows (a row fetch and 4 triangles a lane for
+    each of the R rays: per_pair is the step over R); rows staged, a thread's
+    step over one quad of staged triangles (4 tests a thread, 128 a warp:
+    one (ray, row) pair a step).
     Static counts: the division's rare slow path lies outside the loop."""
     funcs, name = {}, None
     for line in sass.splitlines():
@@ -949,9 +1088,17 @@ def loop_counts(sass, closest_rays):
         if m and name is not None:
             funcs[name].append((int(m.group(1), 16), m.group(2)))
     out = {}
-    for kname, tests in (("mt_closest_kernel", 4 * closest_rays), ("mt_anyhit_kernel", 4),
-                         ("wave_mt_kernel", 4)):
-        ins = next((v for k, v in funcs.items() if kname in k), [])
+    for kname, pattern, tests, pairs in (
+        ("mt_closest_kernel", "mt_closest_kernel", 4 * closest_rays, None),
+        ("mt_anyhit_kernel", "mt_anyhit_kernel", 4, None),
+        ("wave_mt_kernel", "wave_mt_kernel", 4, None),
+        # a warp a tile of r rays: r (ray, row) pairs a step of the warp;
+        # rows staged: 4 triangles a thread, one pair a step of a warp
+        (f"wave_sweep_kernel<{warp_tile}>", "wave_sweep_warp_kernel", 4 * warp_tile,
+         warp_tile),
+        (f"wave_sweep_kernel<{staged_tile}>", "wave_sweep_staged_kernel", 4, 1),
+    ):
+        ins = next((v for k, v in funcs.items() if pattern in k), [])
         loops = []
         for addr, text in ins:  # a loop: a branch back to a lower address
             m = re.search(r"BRA\S*\s+(?:\S+,\s*)?(0x[0-9a-f]+)", text)
@@ -967,6 +1114,8 @@ def loop_counts(sass, closest_rays):
                       "per_test": len(body) / tests,
                       "fp32": sum(o.startswith(("F", "MUFU")) for o in ops),
                       "lds": sum(o.startswith("LDS") for o in ops)}
+        if pairs:
+            out[kname]["per_pair"] = len(body) / pairs
     return out
 
 
@@ -1258,8 +1407,6 @@ def wave_timing(wave, ct, probe, scenes, case, multi, launches, errs, dev, loop=
                        *pixel_rays(scenes.terrain_scene(), dev), (0, 7))
     mp, md, _ = random_rays(14, 2 * N_RAYS, dev)
     waves += time_wave("multi_bsdf_scene", multi, mp, md, (0, 3))
-    table = data.bvh["cluster_rows"]
-    tlim = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
     first = waves[0]
     rows.append({
         "name": "wave_mt", "route": "cuda",
@@ -1271,36 +1418,144 @@ def wave_timing(wave, ct, probe, scenes, case, multi, launches, errs, dev, loop=
         "library_ms": None, "parity": True,
         "shape": f"{n} rays x 1 column, K {k} clusters ({name}), wave 1", "waves": waves,
     })
+    return rows
 
-    # ---- wave_sweep: 8 rays against every cluster
-    m = 8
-    idx8 = torch.arange(0, n, n // m, dtype=torch.int32, device=dev)[:m]
-    start = fresh_state(tlim)
+
+def sweep_shapes(n, device, seen, more=()):
+    """The timed shapes of wave_sweep, (label, idx, state at the call):
+    8 rays of a seeded set with best t T_MAX; the needy rays of phase 4's
+    front_k 8 traces (``seen``, from ``fallback_inputs``): m is the mean
+    of the traces' counts, the rays and state those the fallback met in
+    the first trace that had at least m (its first m); 2,048 rays of the
+    seeded set; then m rays of it for each m in ``more``."""
+    far = torch.full((n,), T_MAX, dtype=torch.float32, device=device)
+
+    def fresh():
+        return [far.clone(), torch.full((n,), -1, dtype=torch.int32, device=device),
+                torch.zeros((n,), dtype=torch.int32, device=device)]
+
+    every = torch.from_numpy(np.random.RandomState(27).permutation(n).astype(np.int32)).to(device)
+    m = round(sum(idx.shape[0] for idx, _ in seen) / max(len(seen), 1))
+    out = [("8 rays", torch.arange(0, n, n // 8, dtype=torch.int32, device=device)[:8], fresh())]
+    if m > 0:
+        idx, state = next((i, s) for i, s in seen if i.shape[0] >= m)
+        out.append((f"the needy rays of a front_k 8 trace (mean of {len(seen)})",
+                    idx[:m].contiguous(), state))
+    out.append(("2048 rays", every[:2048].contiguous(), fresh()))
+    return out + [(f"{m} rays", every[:m].contiguous(), fresh()) for m in more]
+
+
+def time_sweep(wave, p, d, table, idx, start, plain=True):
+    """ms per call of wave_sweep at one shape, the state put back before
+    each call; and of wave_sweep_plain unless plain is False (else None)."""
+    from phosphorus_mk2_tpu_torch.tools.row_gather_probe import launch_ms
+
     state = [x.clone() for x in start]
 
-    def reset8():
+    def reset():
         for x, y in zip(state, start):
             x.copy_(y)
 
-    ms_k = launch_ms(lambda: wave.wave_sweep(p, d, table, idx8, *state), before=reset8)
-    ms_p = launch_ms(lambda: wave.wave_sweep_plain(p, d, table, idx8, *state), reps=3,
-                     before=reset8)
-    ops_ms = m * k * 128 * MT_OPS_PER_TEST / H100_FP32_OPS * 1e3
-    bytes_ms = (k * row_b + m * (28 + 12)) / H100_BYTES * 1e3
-    rows.append({
+    ms = launch_ms(lambda: wave.wave_sweep(p, d, table, idx, *state), before=reset)
+    plain_ms = (launch_ms(lambda: wave.wave_sweep_plain(p, d, table, idx, *state), reps=3,
+                          before=reset) if plain else None)
+    return ms, plain_ms
+
+
+def real_triangles(table):
+    """Lanes of a (K, 9, 128) row table that hold a triangle: a non-zero
+    edge (the rest are the pads past a cluster's triangles)."""
+    return int((table[:, 3:9] != 0).any(dim=1).sum())
+
+
+def sweep_timing(wave, table, p, d, needy, launches, errs, dev, sass, clock):
+    """Phase 7, wave_sweep: every cluster of the terrain's table for the
+    shapes of ``sweep_shapes`` (8 rays, phase 4's front_k 8 needy rays,
+    2,048 rays). Bounds from each shape, over the table's real triangles
+    (lanes with a non-zero edge), not its pads: bytes = the table once +
+    44 a ray (index, origin, direction, best t in; a winner's t, cluster,
+    lane out); operations = m x triangles x 46; the issue floor = the
+    loop's instructions a (ray, row) pair of 128 tests (phase 2, the
+    plan's tile) x m x triangles / 128 over 4 warp-instructions a clock on
+    every SM at the SM clock read under load, printed beside the floor
+    over every lane of every row (m x K pairs). The kernels line carries
+    the 8-ray shape, with the others beside it."""
+    lib = wave.build()
+    k, n = table.shape[0], p.shape[0]
+    row_b = table.shape[1] * table.shape[2] * 4
+    tris = real_triangles(table)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"wave_sweep table: {tris} triangles in {k} rows of {table.shape[2]} lanes", flush=True)
+    out = []
+    for label, idx, start in sweep_shapes(n, dev, needy):
+        m = idx.shape[0]
+        plan = wave.sweep_plan(m, k, *wave.sweep_resident(lib, dev, wave.sweep_tile(m)))
+        ms, plain_ms = time_sweep(wave, p, d, table, idx, start)
+        ops_ms = m * tris * MT_OPS_PER_TEST / H100_FP32_OPS * 1e3
+        bytes_ms = (k * row_b + m * 44) / H100_BYTES * 1e3
+        per_pair = sass.get(f"wave_sweep_kernel<{plan['tile']}>", {}).get("per_pair")
+        issue = 4 * sms * clock * 1e6 if clock else None
+        floor_ms = per_pair * m * tris / table.shape[2] / issue * 1e3 if per_pair and issue else None
+        rows_ms = per_pair * m * k / issue * 1e3 if per_pair and issue else None
+        out.append({"shape": f"{m} rays x K {k} clusters ({label})", "m": m, "ms": ms,
+                    "plain_ms": plain_ms, "plan": plan, "triangles": tris,
+                    "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                    "bound_ms": max(ops_ms, bytes_ms),
+                    "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                    "issue_floor_ms": floor_ms, "issue_floor_ms_every_lane": rows_ms,
+                    "instructions_a_pair": per_pair})
+        print(f"wave_sweep, {m} rays x {k} clusters ({label}): {ms:.5f} ms/launch at tile "
+              f"{plan['tile']} ({plan['splits']} ranges, {plan['blocks']} blocks), plain "
+              f"{plain_ms:.4f} ms; bound {max(ops_ms, bytes_ms):.5f} ms (bytes {bytes_ms:.5f}, "
+              f"ops {ops_ms:.5f}); issue floor " + (
+                  f"{floor_ms:.5f} ms over the triangles ({ms / floor_ms:.3f}x), {rows_ms:.5f} "
+                  f"over every lane ({ms / rows_ms:.3f}x); {per_pair:.1f} instructions a pair, "
+                  f"{clock} MHz" if floor_ms else "not measured"), flush=True)
+    first = out[0]
+    return {
         "name": "wave_sweep", "route": "cuda",
         "source": "phosphorus_mk2_tpu_torch/csrc/wave.cu",
         "replaces": "phosphorus_mk2_tpu/accel/cluster_traverse.py:834",
         "launches": launches["wave_sweep"], "max_abs_err": errs["wave_sweep"],
-        "ms": ms_k, "plain_ms": ms_p, "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-        "library_ms": None, "parity": True,
-        "shape": f"{m} rays x K {k} clusters ({name})",
-    })
-    print(f"wave_sweep on {name}, {m} rays x {k} clusters: {ms_k:.5f} ms/launch, plain "
-          f"{ms_p:.4f} ms, bound {max(ops_ms, bytes_ms):.5f} ms (ops {ops_ms:.5f} ms, bytes "
-          f"{bytes_ms:.5f} ms)", flush=True)
-    return rows
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"], "library_ms": None, "parity": True,
+        "shape": first["shape"], "issue_floor_ms": first["issue_floor_ms"], "shapes": out,
+    }
+
+
+def sweep_timing_only(more) -> int:
+    """--sweep-timing: wave_sweep alone on the full-size terrain_scene, at
+    the shapes of ``sweep_shapes`` (phase 4's front_k 8 traces run here
+    to find the needy rays), then at m rays for each m in ``more``
+    (without the plain version). Prints one JSON line: the package's
+    path, the device, the needy rays per trace and per shape the ms per
+    call of the kernel and of the plain version. With --package DIR it
+    times the package of another checkout (its own csrc/wave.cu, built
+    into that checkout) on the same inputs, so two designs can be
+    compared in one run."""
+    from phosphorus_mk2_tpu_torch import scenes
+    from phosphorus_mk2_tpu_torch.accel import cluster_traverse as ct
+    from phosphorus_mk2_tpu_torch.accel import wave
+    from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
+
+    dev = torch.device("cuda")
+    terrain = scenes.terrain_scene()
+    data = attach_bvh(terrain.build(device=dev), builder="native")
+    table = data.bvh["cluster_rows"]
+    p, d, tmax = trace_inputs(terrain, dev)
+    with fallback_inputs(wave) as seen:
+        ct.intersect_clusters(data, p, d, front_k=8)
+        ct.occluded_clusters(data, p, d, tmax, front_k=8)
+    rows = []
+    timed = sweep_shapes(p.shape[0], dev, seen, more)
+    for i, (label, idx, start) in enumerate(timed):
+        ms, plain_ms = time_sweep(wave, p, d, table, idx, start,
+                                  plain=i < len(timed) - len(more))
+        rows.append({"shape": label, "m": idx.shape[0], "k": table.shape[0], "ms": ms,
+                     "plain_ms": plain_ms})
+    print(json.dumps({"package": wave.__file__, "device": torch.cuda.get_device_name(0),
+                      "needy_per_trace": [idx.shape[0] for idx, _ in seen], "wave_sweep": rows}))
+    return 0
 
 
 def run(profile: bool, upto: int) -> int:
@@ -1349,11 +1604,14 @@ def run(profile: bool, upto: int) -> int:
     wave_cases = [("terrain_scene", terrain_data, tp, td, cases[0][4]),
                   ("multi_bsdf_scene", multi_data, mp, md, cases[1][4])]
     errs.update(wave_parity(wave, ct, probe, wave_cases, dev))
+    errs["wave_sweep"] = max(errs["wave_sweep"], sweep_parity(wave, wave_cases[0], dev))
     if upto < 4:
         return 0
 
     phase("4 cluster tracer vs brute oracle")
-    ties, fallback_share = tracer_vs_oracle(mt, ct, terrain, terrain_data, dev)
+    ties, fallback_share, _, _, _ = tracer_vs_oracle(mt, ct, terrain, terrain_data, dev, {})
+    ties8, share8, needy, p4, d4 = tracer_vs_oracle(mt, ct, terrain, terrain_data, dev,
+                                                    {"front_k": 8})
 
     phase("5 main path")
     launches = main_path(mt, front, wave, ct, probe, pt, scenes, dev)
@@ -1371,9 +1629,13 @@ def run(profile: bool, upto: int) -> int:
     rows += front_timing(front, cases, launches, errs)
     rows += wave_timing(wave, ct, probe, scenes, wave_cases[0], multi_data, launches, errs,
                         dev, sass.get("wave_mt_kernel"), rows[0]["sm_clock_mhz"])
+    rows.append(sweep_timing(wave, terrain_data.bvh["cluster_rows"], p4, d4, needy,
+                             launches, errs, dev, sass, rows[0]["sm_clock_mhz"]))
 
     print(json.dumps({"tracer_vs_oracle": {"exact_t_ties": ties, "rays": N_RAYS,
-                                           "fallback_share": fallback_share}}))
+                                           "fallback_share": fallback_share,
+                                           "front_k_8": {"exact_t_ties": ties8,
+                                                         "fallback_share": share8}}}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))
@@ -1389,7 +1651,21 @@ def main() -> int:
     ap.add_argument("--upto", type=int, default=7, metavar="PHASE",
                     help="stop after this phase (2 or 3: build and parity only, for a "
                          "first look at a new kernel); prints no result line")
+    ap.add_argument("--sweep-timing", action="store_true",
+                    help="only time wave_sweep at phase 7's shapes and print one JSON line "
+                         "(no result line)")
+    ap.add_argument("--m", default="", metavar="M,...",
+                    help="with --sweep-timing: more ray counts to time, comma-separated")
+    ap.add_argument("--package", metavar="DIR",
+                    help="with --sweep-timing: time the port of the checkout in DIR")
     args = ap.parse_args()
+    if args.sweep_timing:
+        if args.package:
+            sys.path.insert(0, os.path.abspath(args.package))
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+            return 2
+        return sweep_timing_only([int(x) for x in args.m.split(",") if x])
     try:
         rc = run(args.profile, args.upto)
     except PhaseError as e:

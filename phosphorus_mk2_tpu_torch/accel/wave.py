@@ -18,7 +18,14 @@ kernels for Hopper and their plain PyTorch versions.
     all its warps; ``wave_mt_plain(gate=G)`` walks the same
     decomposition on any device.
   * ``wave_sweep`` is the exact fallback: every cluster of the table for
-    a list of rays (the ``cand_base`` form of ``_mt_rows``).
+    a list of rays (the ``cand_base`` form of ``_mt_rows``). The kernel
+    cuts the rays into tiles and the clusters into ranges (``sweep_plan``,
+    from m and the SM count and occupancy, queried once per device), and
+    each fetched row serves a whole tile: up to 16 rays in tiles of 4 a
+    warp, from 17 on tiles of 32 with the rows staged in shared memory
+    for a block, which skips the quads of a row that hold only pads
+    (their first edge is zero, so no ray hits them); ``wave_sweep_plain(
+    plan=)`` walks the same cut on any device.
 
 The kernels are in ``csrc/wave.cu``, compiled with ``nvcc`` at first use
 into ``build/torch_kernels/`` and bound with ctypes. A wrapper given CPU
@@ -54,8 +61,11 @@ replaces an earlier one only when strictly nearer, and a re-tested
 candidate never replaces itself. The winner is therefore the candidate
 with the least (t, cluster * C + lane), in lexicographic order, among
 those below the ray's starting best t: a property of the set, not of the
-walk. The kernel cuts a ray's clusters over many blocks and takes that
-minimum with an atomic.
+walk. The kernel cuts the rays into tiles and the clusters into ranges,
+one block each, and takes that minimum over a tile's ranges with a 64-bit
+atomicMin of (t bits << 32 | flat index); ``wave_sweep_plain(plan=)``
+takes each (tile, range) minimum against the best t of the call and
+merges them by the same key, and equals the uncut walk to the bit.
 """
 from __future__ import annotations
 
@@ -75,11 +85,18 @@ FB_ELEMS = 1 << 24   # (ray, triangle) pairs per step of wave_sweep_plain:
 VARIANTS = ("direct", "staged")
 GATES = (32, 16, 8)  # rays a warp that wave_mt's gate takes, the widest first
 MT_WARPS = 8         # csrc/wave.cu MT_WARPS: warps a block of wave_mt
+WARP_TILE = 4        # rays a tile of wave_sweep's kernel with a warp a tile
+STAGED_TILE = 32     # and of its kernel with the rows staged for a block
+SWEEP_WARPS = 8      # csrc/wave.cu SWEEP_WARPS: warps a block of wave_sweep, a warp a tile
+SWEEP_WAVES = 4      # waves of resident blocks a sweep aims at
+SWEEP_MIN_ROWS = 2   # rows a warp (a block, rows staged) takes at least, on average
+NO_KEY = (1 << 63) - 1  # wave_sweep_plain's key of a ray without a hit
 
 LAUNCHES = {"row_gather": 0, "wave_mt": 0, "wave_sweep": 0}
 
 _lib = None
-_resident = {}  # device index -> (SMs, wave_mt blocks resident on an SM)
+_resident = {}  # (device index, kernel) -> (SMs, blocks resident on an SM)
+_scratch = {}   # device index -> wave_sweep's keys and per-tile counters
 build_log = ""  # nvcc's output (ptxas register and shared-memory report)
 
 
@@ -95,9 +112,11 @@ def build() -> ctypes.CDLL:
     lib.wave_mt_blocks_per_sm.argtypes = [vp]
     lib.wave_mt_launch.argtypes = [vp, vp, vp, i32, vp, vp, i64, i64, i32, i32, i32, i32,
                                    vp, vp, vp, vp]
-    lib.wave_sweep_launch.argtypes = [vp, vp, vp, i32, vp, i32, vp, vp, vp, vp, vp]
+    lib.wave_sweep_blocks_per_sm.argtypes = [i32, vp]
+    lib.wave_sweep_launch.argtypes = [vp, vp, vp, i32, vp, i32, i32, i32, i32, vp, vp, vp,
+                                      vp, vp, vp]
     for fn in (lib.row_gather_launch, lib.wave_mt_blocks_per_sm, lib.wave_mt_launch,
-               lib.wave_sweep_launch):
+               lib.wave_sweep_blocks_per_sm, lib.wave_sweep_launch):
         fn.restype = i32
     _lib = lib
     return lib
@@ -223,6 +242,32 @@ def mt_rows(p, d, rows, best, live, cand_cids=None, cand_base=None):
     starts in a triangle's plane) is stored as +0.0, as the kernels do.
     """
     n, W, _, C = rows.shape
+    t_m = _masked_t(p, d, rows, best[0], live).reshape(n, W * C)
+    t_new = t_m.min(dim=1).values
+    best_t, best_cid, best_lane = best
+    better = t_new < best_t  # t_m is already gated on t < best_t
+    # the first flat index at the minimum, by a masked-iota min
+    col = torch.arange(W * C, dtype=torch.int32, device=p.device)[None, :]
+    j = torch.where(t_m == t_new[:, None], col, 1 << 30).min(dim=1).values
+    j = torch.where(better, j, 0)
+
+    jc = j // C
+    lane_new = j % C
+    if cand_cids is not None:
+        cid_new = cand_cids.gather(1, jc[:, None].long())[:, 0]
+    else:
+        cid_new = cand_base + jc
+    return (
+        torch.where(better, t_new + 0.0, best_t),  # -0.0 + 0.0 = +0.0
+        torch.where(better, cid_new, best_cid),
+        torch.where(better, lane_new, best_lane),
+    )
+
+
+def _masked_t(p, d, rows, best_t, live):
+    """The Moller-Trumbore t of every (ray, row, lane) of ``mt_rows``,
+    T_MAX where the hit is not valid, not below best_t or not live:
+    (N, W, C)."""
     px, py, pz = p[:, 0, None, None], p[:, 1, None, None], p[:, 2, None, None]
     dx, dy, dz = d[:, 0, None, None], d[:, 1, None, None], d[:, 2, None, None]
     ax, ay, az = rows[:, :, 0], rows[:, :, 1], rows[:, :, 2]    # (N, W, C)
@@ -244,8 +289,6 @@ def mt_rows(p, d, rows, best, live, cand_cids=None, cand_base=None):
     qvz = tx * e0y - ty * e0x
     v = (dx * qvx + dy * qvy + dz * qvz) * ood
     t = (e1x * qvx + e1y * qvy + e1z * qvz) * ood
-
-    best_t, best_cid, best_lane = best
     ok = (
         ~near0
         & (u >= 0.0)
@@ -256,25 +299,7 @@ def mt_rows(p, d, rows, best, live, cand_cids=None, cand_base=None):
         & (t < best_t[:, None, None])
         & (live[:, None, None] if live.dim() == 1 else live)
     )
-    t_m = torch.where(ok, t, T_MAX).reshape(n, W * C)
-    t_new = t_m.min(dim=1).values
-    better = t_new < best_t  # t_m is already gated on t < best_t
-    # the first flat index at the minimum, by a masked-iota min
-    col = torch.arange(W * C, dtype=torch.int32, device=p.device)[None, :]
-    j = torch.where(t_m == t_new[:, None], col, 1 << 30).min(dim=1).values
-    j = torch.where(better, j, 0)
-
-    jc = j // C
-    lane_new = j % C
-    if cand_cids is not None:
-        cid_new = cand_cids.gather(1, jc[:, None].long())[:, 0]
-    else:
-        cid_new = cand_base + jc
-    return (
-        torch.where(better, t_new + 0.0, best_t),  # -0.0 + 0.0 = +0.0
-        torch.where(better, cid_new, best_cid),
-        torch.where(better, lane_new, best_lane),
-    )
+    return torch.where(ok, t, T_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -305,18 +330,24 @@ def gate_plan(n: int, sms: int, blocks_per_sm: int) -> dict:
             "resident_warps": resident_warps}
 
 
-def resident(lib, dev: torch.device):
-    """(SMs, wave_mt blocks resident on an SM) of a CUDA device."""
+def _occupancy(dev: torch.device, kernel: str, query):
+    """(SMs, blocks of ``kernel`` resident on an SM) of a CUDA device;
+    query(pointer to an int) asks the library, once a device."""
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _resident:
+    if (idx, kernel) not in _resident:
         blocks = ctypes.c_int(0)
         with torch.cuda.device(idx):
-            err = lib.wave_mt_blocks_per_sm(ctypes.byref(blocks))
+            err = query(ctypes.byref(blocks))
         if err != 0 or blocks.value < 1:
-            raise RuntimeError(f"wave_mt occupancy query failed: cudaError {err}")
-        _resident[idx] = (torch.cuda.get_device_properties(idx).multi_processor_count,
-                          blocks.value)
-    return _resident[idx]
+            raise RuntimeError(f"{kernel} occupancy query failed: cudaError {err}")
+        _resident[idx, kernel] = (torch.cuda.get_device_properties(idx).multi_processor_count,
+                                  blocks.value)
+    return _resident[idx, kernel]
+
+
+def resident(lib, dev: torch.device):
+    """(SMs, wave_mt blocks resident on an SM) of a CUDA device."""
+    return _occupancy(dev, "wave_mt", lib.wave_mt_blocks_per_sm)
 
 
 def _gated_columns(col_t, col_c, best_t, best_c, any_hit, k):
@@ -452,12 +483,102 @@ def _check_sweep(p, d, table, idx, best_t, best_c, best_l):
     _check_table(table, named + [("idx", idx)])
 
 
-def wave_sweep_plain(p, d, table, idx, best_t, best_c, best_l, fb_cc: int = 0):
+def sweep_tile(m: int) -> int:
+    """Rays a tile of ``wave_sweep`` for m listed rays, as the card timed
+    them (PERF.md): a warp a tile of WARP_TILE rays up to 16 rays; then
+    the rows staged for a block, tiles of STAGED_TILE rays."""
+    return WARP_TILE if m <= 16 else STAGED_TILE
+
+
+def sweep_plan(m: int, k: int, sms: int, blocks_per_sm: int) -> dict:
+    """How ``wave_sweep`` cuts m listed rays x k clusters: ray tiles of
+    ``sweep_tile(m)`` rays x ``splits`` cluster ranges of ``per_block``
+    (the last may be short, none is empty), a block each. blocks_per_sm
+    is the tile's kernel's occupancy. The
+    splits aim at SWEEP_WAVES waves of resident blocks (``resident_blocks``
+    = sms x blocks_per_sm), fewer when the sweep would give a block's
+    warps (with the rows staged, a block) fewer than SWEEP_MIN_ROWS rows
+    each on average, and never so many that they get fewer than that."""
+    r = sweep_tile(m)
+    tiles = -(-m // r)
+    resident = sms * blocks_per_sm
+    block_rows = (SWEEP_WARPS if r == WARP_TILE else 1) * SWEEP_MIN_ROWS
+    waves = max(1, min(SWEEP_WAVES, tiles * k // (resident * block_rows)))
+    splits = max(1, min(-(-resident * waves // tiles), -(-k // block_rows)))
+    per_block = -(-k // splits)
+    splits = -(-k // per_block)
+    return {"tile": r, "tiles": tiles, "splits": splits, "per_block": per_block,
+            "blocks": tiles * splits, "resident_blocks": resident}
+
+
+def sweep_resident(lib, dev: torch.device, tile: int):
+    """(SMs, wave_sweep blocks resident on an SM) of a CUDA device for a
+    tile of ``tile`` rays."""
+    return _occupancy(dev, f"wave_sweep tile {tile}",
+                      lambda blocks: lib.wave_sweep_blocks_per_sm(tile, blocks))
+
+
+def _tile_keys(p, d, table, start, per):
+    """The least (t bits << 32 | flat) key of each ray of a tile in each
+    range of ``per`` clusters, among hits below ``start``, merged over
+    the ranges by the minimum; NO_KEY without a hit. Whole ranges are
+    taken a step at a time, at most about FB_ELEMS pairs a step (one
+    range at least)."""
+    K, _, C = table.shape
+    n = p.shape[0]
+    dev = p.device
+    keys = torch.full((n,), NO_KEY, dtype=torch.int64, device=dev)
+    step = max(1, FB_ELEMS // (n * per * C)) * per
+    live = torch.ones((n,), dtype=torch.bool, device=dev)
+    for a in range(0, K, step):
+        rows = table[a : min(a + step, K)]
+        t_m = _masked_t(p, d, rows[None].expand(n, -1, -1, -1), start, live)
+        ranges = -(-rows.shape[0] // per)
+        pad = ranges * per - rows.shape[0]  # a short last range
+        t_m = torch.nn.functional.pad(t_m, (0, 0, 0, pad), value=T_MAX)
+        t_r = t_m.reshape(n, ranges, per * C)
+        t_min = t_r.min(dim=2).values
+        col = torch.arange(per * C, dtype=torch.int64, device=dev)
+        j = torch.where(t_r == t_min[:, :, None], col, 1 << 40).min(dim=2).values
+        flat = (a + per * torch.arange(ranges, device=dev))[None, :] * C + j
+        key = ((t_min + 0.0).view(torch.int32).long() << 32) | flat  # -0.0 -> +0.0
+        key = torch.where(t_min < start[:, None], key, NO_KEY)
+        keys = torch.minimum(keys, key.min(dim=1).values)
+    return keys
+
+
+def _wave_sweep_cut(p, d, table, idx, best_t, best_c, best_l, plan):
+    K, _, C = table.shape
+    m = idx.shape[0]
+    r, splits, per = plan["tile"], plan["splits"], plan["per_block"]
+    if not (splits >= 1 and per >= 1 and (splits - 1) * per < K <= splits * per):
+        raise ValueError(f"the plan's {splits} ranges of {per} do not cut {K} clusters")
+    sel = idx.long()
+    start = best_t[sel]  # every range meets the best t of the call
+    keys = torch.cat([_tile_keys(p[sel[j0 : j0 + r]], d[sel[j0 : j0 + r]], table,
+                                 start[j0 : j0 + r], per) for j0 in range(0, m, r)])
+    won = keys != NO_KEY
+    ray, key = sel[won], keys[won]
+    flat = (key & 0xFFFFFFFF).int()
+    best_t[ray] = (key >> 32).int().view(torch.float32)
+    best_c[ray] = flat // C
+    best_l[ray] = flat % C
+
+
+def wave_sweep_plain(p, d, table, idx, best_t, best_c, best_l, fb_cc: int = 0,
+                     plan: dict | None = None):
     """Plain PyTorch version of ``wave_sweep``: up to FB_RAYS of the
     listed rays at a time against ascending blocks of CC clusters
     (fb_cc, or as many as FB_ELEMS pairs allow), the last block
-    overlapping the one before."""
+    overlapping the one before.
+
+    plan (from ``sweep_plan``) walks the kernel's decomposition instead:
+    ray tiles x cluster ranges, each (tile, range) against the best t of
+    the call, every ray's least (t, flat) key taken over the ranges. It
+    gives the same state (see the module's note)."""
     _check_sweep(p, d, table, idx, best_t, best_c, best_l)
+    if plan is not None:
+        return _wave_sweep_cut(p, d, table, idx, best_t, best_c, best_l, plan)
     K, _, C = table.shape
     for i0 in range(0, idx.shape[0], FB_RAYS):
         sel = idx[i0 : i0 + FB_RAYS].long()
@@ -474,23 +595,40 @@ def wave_sweep_plain(p, d, table, idx, best_t, best_c, best_l, fb_cc: int = 0):
         best_t[sel], best_c[sel], best_l[sel] = cur
 
 
+def _sweep_scratch(dev: torch.device, m: int, tiles: int):
+    """The kernel's keys (every one "none", ~0) and per-tile counters
+    (every one 0) on dev, as every call leaves them; made anew, larger,
+    when a call needs more than they hold. Shared by the calls on a
+    device, so they must not overlap: calls on one stream do not."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    keys, done = _scratch.get(idx, (None, None))
+    if keys is None or keys.shape[0] < m:
+        keys = torch.full((max(m, 4096),), -1, dtype=torch.int64, device=dev)
+    if done is None or done.shape[0] < tiles:
+        done = torch.zeros((max(tiles, 4096),), dtype=torch.int32, device=dev)
+    _scratch[idx] = keys, done
+    return keys, done
+
+
 def wave_sweep(p, d, table, idx, best_t, best_c, best_l):
     """The exact fallback for the rays idx (m,) int32: every cluster of
     the table; the hit of least t below the ray's best t wins, among
     equal t the lowest cluster, then lane. The state is updated in place.
-    The CUDA kernel for CUDA tensors, ``wave_sweep_plain`` for CPU
-    tensors."""
+    The CUDA kernel for CUDA tensors, one launch cut as ``sweep_plan``
+    says; ``wave_sweep_plain`` for CPU tensors."""
     if not p.is_cuda:
         return wave_sweep_plain(p, d, table, idx, best_t, best_c, best_l)
     _check_sweep(p, d, table, idx, best_t, best_c, best_l)
     lib = build()
-    m = idx.shape[0]
-    if m == 0 or table.shape[0] == 0:
+    m, k = idx.shape[0], table.shape[0]
+    if m == 0 or k == 0:
         return
-    keys = torch.empty((m,), dtype=torch.int64, device=p.device)
+    plan = sweep_plan(m, k, *sweep_resident(lib, p.device, sweep_tile(m)))
+    keys, done = _sweep_scratch(p.device, m, plan["tiles"])
     err = lib.wave_sweep_launch(
-        p.data_ptr(), d.data_ptr(), table.data_ptr(), table.shape[0], idx.data_ptr(), m,
-        best_t.data_ptr(), best_c.data_ptr(), best_l.data_ptr(), keys.data_ptr(), _stream(p),
+        p.data_ptr(), d.data_ptr(), table.data_ptr(), k, idx.data_ptr(), m, plan["tile"],
+        plan["splits"], plan["per_block"], best_t.data_ptr(), best_c.data_ptr(),
+        best_l.data_ptr(), keys.data_ptr(), done.data_ptr(), _stream(p),
     )
     if err != 0:
         raise RuntimeError(f"wave_sweep launch failed: cudaError {err}")

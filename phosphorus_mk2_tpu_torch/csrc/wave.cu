@@ -52,9 +52,10 @@
 //               neither on how the rays were grouped nor on which warp
 //               took which group in what order: the result is the
 //               one-warp-per-ray walk's to the bit.
-//   wave_sweep  the exact fallback: for each of m listed rays, every
-//               cluster of the table. The plain version walks the
-//               clusters in ascending blocks and carries a strict
+//   wave_sweep  the exact fallback (the JAX package's cluster_traverse.py
+//               fallback, XLA, no Pallas kernel): for each of m listed
+//               rays, every cluster of the table. The plain version walks
+//               the clusters in ascending blocks and carries a strict
 //               t < best_t from block to block, so its winner is the
 //               candidate with the least (t, cluster * 128 + triangle) in
 //               lexicographic order among those with t below the ray's
@@ -62,11 +63,20 @@
 //               only if strictly nearer, and re-testing a block (the last
 //               one overlaps the one before) changes nothing. That
 //               minimum does not depend on the order of evaluation, so
-//               the cluster range of a ray is cut over several blocks,
-//               each warp reduces its share to one 64-bit key
-//               (t bits << 32 | flat index) and the shares meet in an
-//               atomicMin; a second small kernel writes the winners into
-//               the state.
+//               the work is cut as (ray tiles) x (cluster ranges), from
+//               the host's plan, each range of a tile one block, and a
+//               fetched row serves the whole tile. Two layouts, picked by
+//               the tile: 4 rays a warp (lane l holds
+//               triangles l, l + 32, l + 64, l + 96 of the row it
+//               fetched, as in wave_mt, and keeps a LaneBest per ray in
+//               registers over its range; each ray is reduced over the
+//               warp once, at the end); tiles of 32 rays with the rows
+//               staged in shared memory for the block, a thread a ray
+//               and a slice of the row (mt_closest's layout, as
+//               csrc/mt.cu has it), skipping the row's empty quads. The blocks meet in one atomicMin of a
+//               64-bit key (t bits << 32 | flat index) a ray with a hit,
+//               and the last block of a tile writes the state: one launch
+//               a call.
 //
 // What bounds them on an H100: bytes. A (ray, cluster) pair reads a
 // 4,608-byte row and does 128 tests of ~46 operations: 1.3 operations a
@@ -89,6 +99,22 @@
 // pair is 338 instructions as compiled (cuobjdump), an issue floor of
 // 0.012 ms for terrain wave 1 of 65,536 rays on an H100 at 1,980 MHz,
 // which no grouping removes; the measured time is 2-3x that floor.
+// For wave_sweep the least is the table once (0.008 ms for 26.7 MB) plus
+// the tests of the real triangles (a row's lanes past its cluster's
+// triangles are zero pads: the terrain's 5,803 rows hold 530,912
+// triangles in 742,784 lanes), whose issue is ~300 instructions a 128
+// tests as compiled: ~0.01 ms at 8 rays x 5,803 clusters, ~2.4 ms at
+// 2,048 rays. A block a ray would fetch each row once a RAY and read the
+// table m times; here a tile reads it once, ceil(m / tile) times in all.
+// What is left is issue, and the two layouts differ there: the warp
+// layout's rows come from L2 into registers at the top of each step, and
+// it ran ~1.6x its issue floor over every lane at 2,048 rays; with the
+// rows staged for a block the threads test from shared memory, and skip
+// the quads of pads, a warp at a time. A few rays cannot fill a block of
+// threads (the staged layout takes ~0.07 ms for 1 to 32 rays, the warp
+// layout 0.012 for 1 and 0.064 for 16), so up to 16 go to the warp
+// layout; the plan gives enough blocks for the card's resident warps
+// whatever m is.
 //
 // Exactness: compiled with --fmad=false and IEEE division, no fast
 // math, so t equals the plain PyTorch version's bit for bit. A winning t
@@ -116,8 +142,10 @@ constexpr int STAGED_WARPS = 4;        // row_gather staged: warps per block
 constexpr int NBUF = 4;                // ring slots (copies in flight) per warp
 constexpr int STAGED_ROWS = 8;         // rows a warp walks through its ring
 constexpr int MT_WARPS = 8;            // wave_mt: warps per block (G rays each)
-constexpr int SWEEP_WARPS = 8;         // wave_sweep: warps per block
-constexpr int SWEEP_BLOCKS = 1056;     // wave_sweep: blocks aimed at (8 per SM)
+constexpr int SWEEP_WARPS = 8;         // wave_sweep, a warp a tile: warps per block
+constexpr int WARP_TILE = 4;           //   and rays a tile
+constexpr int SWEEP_THREADS = 128;     // wave_sweep, rows staged: threads per block
+constexpr int STAGED_TILE = 32;        //   and rays a tile
 
 // The row fetch: lane l takes, of each of the 9 component rows, columns
 // l, l + 32, l + 64 and l + 96, so every load of the warp is one
@@ -141,15 +169,13 @@ __device__ __forceinline__ void store_row(float* row, int lane,
   }
 }
 
-// Moller-Trumbore of one ray against triangle i of a lane's fetched row;
-// the arithmetic of csrc/mt.cu mt_test and of the plain mt_rows, in
-// their order. Returns the validity of the hit; t is always written.
-__device__ __forceinline__ bool mt_test(const float (&v)[COMPS][PER_LANE], int i,
-                                        float px, float py, float pz,
-                                        float dx, float dy, float dz, float& t) {
-  const float ax = v[0][i], ay = v[1][i], az = v[2][i];
-  const float e0x = v[3][i], e0y = v[4][i], e0z = v[5][i];
-  const float e1x = v[6][i], e1y = v[7][i], e1z = v[8][i];
+// Moller-Trumbore of one ray against one triangle; the arithmetic of
+// csrc/mt.cu mt_test and of the plain mt_rows, in their order. Returns
+// the validity of the hit; t is always written.
+__device__ __forceinline__ bool mt_hit(float ax, float ay, float az, float e0x, float e0y,
+                                       float e0z, float e1x, float e1y, float e1z,
+                                       float px, float py, float pz,
+                                       float dx, float dy, float dz, float& t) {
   const float pvx = dy * e1z - dz * e1y;
   const float pvy = dz * e1x - dx * e1z;
   const float pvz = dx * e1y - dy * e1x;
@@ -167,6 +193,14 @@ __device__ __forceinline__ bool mt_test(const float (&v)[COMPS][PER_LANE], int i
   t = (e1x * qvx + e1y * qvy + e1z * qvz) * ood;
   return !near0 && u >= 0.0f && u <= 1.0f && vv >= 0.0f && u + vv <= 1.0f &&
          t >= 0.0f;
+}
+
+// The same against triangle i of a lane's fetched row.
+__device__ __forceinline__ bool mt_test(const float (&v)[COMPS][PER_LANE], int i,
+                                        float px, float py, float pz,
+                                        float dx, float dy, float dz, float& t) {
+  return mt_hit(v[0][i], v[1][i], v[2][i], v[3][i], v[4][i], v[5][i], v[6][i], v[7][i],
+                v[8][i], px, py, pz, dx, dy, dz, t);
 }
 
 // A lane's running winner over the triangles it meets in ascending flat
@@ -401,52 +435,219 @@ wave_mt_kernel(const float* __restrict__ p, const float* __restrict__ d,
 // wave_sweep
 // ---------------------------------------------------------------------------
 
-// Block b works on listed ray b / splits and on clusters
-// [(b % splits) * per_block, ...); its warps take those clusters in turn.
-__global__ void __launch_bounds__(SWEEP_WARPS * 32)
-wave_sweep_kernel(const float* __restrict__ p, const float* __restrict__ d,
-                  const float* __restrict__ table, int k,
-                  const int* __restrict__ idx, int splits, int per_block,
-                  const float* __restrict__ best_t, unsigned long long* keys) {
-  const int j = blockIdx.x / splits;
-  const int c0 = (blockIdx.x % splits) * per_block;
-  const int c1 = min(k, c0 + per_block);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int ray = idx[j];
-  const float bt = best_t[ray];
-  const float px = p[3 * ray], py = p[3 * ray + 1], pz = p[3 * ray + 2];
-  const float dx = d[3 * ray], dy = d[3 * ray + 1], dz = d[3 * ray + 2];
-  LaneBest best;
-  for (int c = c0 + warp; c < c1; c += SWEEP_WARPS) {
-    float v[COMPS][PER_LANE];
-    fetch_row(table + static_cast<size_t>(c) * ROW, lane, v);
-    test_row(v, lane, c * C, px, py, pz, dx, dy, dz, bt, best);
+__device__ __forceinline__ unsigned long long sweep_key(float t, int flat) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) | static_cast<unsigned>(flat);
+}
+
+// The end of every block of both sweep kernels, once its keys are in
+// keys[j0, j0 + nr) (atomicMin): the last block of the tile to finish,
+// found by the tile's counter, writes each ray's key over its state and
+// puts the key back to "none". atomicInc wraps the counter back to 0, so
+// the counters and the keys are as the next call needs them. Every key
+// that was written beats the ray's state (its t was below the best t at
+// the call).
+__device__ __forceinline__ void finish_tile(int tile, int j0, int nr, int splits,
+                                            const int* __restrict__ idx,
+                                            unsigned long long* keys, unsigned* done,
+                                            float* best_t, int* best_c, int* best_l) {
+  __shared__ int s_last;
+  __threadfence();  // this block's keys are visible before the count says so
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicInc(done + tile, static_cast<unsigned>(splits - 1)) ==
+             static_cast<unsigned>(splits - 1);
   }
-  int flat;
-  const int mb = warp_winner(best, flat);
-  if (lane == 0 && flat != INT_MAX) {
-    const unsigned long long key =
-        (static_cast<unsigned long long>(static_cast<unsigned>(mb)) << 32) |
-        static_cast<unsigned>(flat);
-    atomicMin(keys + j, key);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int j = threadIdx.x; j < nr; j += blockDim.x) {
+    const unsigned long long key = __ldcg(keys + j0 + j);
+    if (key != ~0ull) {
+      const int ray = idx[j0 + j];
+      const int flat = static_cast<int>(key & 0xFFFFFFFFull);
+      best_t[ray] = __int_as_float(static_cast<int>(key >> 32));
+      best_c[ray] = flat / C;
+      best_l[ray] = flat % C;
+      keys[j0 + j] = ~0ull;
+    }
   }
 }
 
-// Every key that was written beats the ray's state (its t was below the
-// best t at entry): unpack it over the state.
-__global__ void wave_sweep_write_kernel(const int* __restrict__ idx, int m,
-                                        const unsigned long long* __restrict__ keys,
-                                        float* best_t, int* best_c, int* best_l) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  const unsigned long long key = keys[j];
-  if (key == ~0ull) return;
-  const int ray = idx[j];
-  const int flat = static_cast<int>(key & 0xFFFFFFFFull);
-  best_t[ray] = __int_as_float(static_cast<int>(key >> 32));
-  best_c[ray] = flat / C;
-  best_l[ray] = flat % C;
+// A warp a tile of R = WARP_TILE rays (few rays). Block b takes ray tile
+// b / splits (listed rays [tile * R, tile * R + nr)) and cluster range
+// [c0, c1) of split b % splits; its warps take the range's clusters in
+// turn. A warp
+// fetches each row ONCE and tests it for every ray of the tile, keeping a
+// LaneBest per ray in registers over its whole range, and reduces each
+// ray over the warp once, at the end; the block's warps meet in shared
+// memory, and the block issues one atomicMin a ray that found a hit.
+// Every branch on nr or r is uniform over the block.
+__global__ void __launch_bounds__(SWEEP_WARPS * 32)
+wave_sweep_warp_kernel(const float* __restrict__ p, const float* __restrict__ d,
+                       const float* __restrict__ table, int k, const int* __restrict__ idx,
+                       int m, int splits, int per_block, float* best_t, int* best_c,
+                       int* best_l, unsigned long long* keys, unsigned* done) {
+  constexpr int R = WARP_TILE;
+  __shared__ float s_ray[R][7];  // origin, direction, best t at the call
+  __shared__ unsigned long long s_key[R];
+  const int tile = blockIdx.x / splits;
+  const int j0 = tile * R;
+  const int nr = min(R, m - j0);
+  const int c0 = (blockIdx.x - tile * splits) * per_block;
+  const int c1 = min(k, c0 + per_block);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < nr) {
+    const int ray = idx[j0 + threadIdx.x];
+    float* r = s_ray[threadIdx.x];
+    r[0] = p[3 * ray], r[1] = p[3 * ray + 1], r[2] = p[3 * ray + 2];
+    r[3] = d[3 * ray], r[4] = d[3 * ray + 1], r[5] = d[3 * ray + 2];
+    r[6] = best_t[ray];
+    s_key[threadIdx.x] = ~0ull;
+  }
+  __syncthreads();
+  LaneBest best[R];
+  for (int c = c0 + warp; c < c1; c += SWEEP_WARPS) {
+    float v[COMPS][PER_LANE];
+    fetch_row(table + static_cast<size_t>(c) * ROW, lane, v);  // once for the tile
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < nr) {
+        // read anew for each row: kept in registers, the tile's rays
+        // would cost 7 R of them and resident warps with them
+        const volatile float* q = s_ray[r];
+        test_row(v, lane, c * C, q[0], q[1], q[2], q[3], q[4], q[5], q[6], best[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < nr) {
+      int flat;
+      const int mb = warp_winner(best[r], flat);
+      if (lane == 0 && flat != INT_MAX) atomicMin(&s_key[r], sweep_key(__int_as_float(mb), flat));
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < nr && s_key[threadIdx.x] != ~0ull) {
+    atomicMin(keys + j0 + threadIdx.x, s_key[threadIdx.x]);
+  }
+  finish_tile(tile, j0, nr, splits, idx, keys, done, best_t, best_c, best_l);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(shared_addr(dst)), "l"(src) : "memory");
+}
+
+// Start the copy of one row into shared memory, 16 bytes a copy, and
+// close the thread's group of copies.
+__device__ __forceinline__ void stage_cluster(float (*dst)[C], const float* __restrict__ row) {
+  constexpr int QUADS = ROW / 4;
+  for (int q = threadIdx.x; q < QUADS; q += blockDim.x) {
+    cp_async16(&dst[0][0] + 4 * q, row + 4 * q);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float quad(const float4& x, int q) {
+  return q == 0 ? x.x : (q == 1 ? x.y : (q == 2 ? x.z : x.w));
+}
+
+// Rows staged for a block (mt_closest's layout, csrc/mt.cu). Block b
+// takes ray tile b / splits of STAGED_TILE listed rays and cluster range
+// [c0, c1) of split b % splits. Thread i takes ray i % STAGED_TILE
+// against slice i / STAGED_TILE of each row, one slice a warp: the
+// slices cut a row's 32 quads of triangles, slice s the quads s, s + S,
+// ... The block stages the rows in shared memory with 16-byte cp.async,
+// one at a time (a second buffer filled during the tests timed 4% slower
+// at 2,048 rays: the other resident blocks hide the copy), and a thread
+// reads four triangles of a component as one LDS.128 (a broadcast to the
+// threads of the other rays). A quad whose four triangles all have a
+// zero first edge is skipped, for the whole warp at once: with e0 = 0 the
+// determinant is 0 or NaN, so no ray can hit it (the plain version tests
+// it and rejects it), and the pads that fill a cluster's row past its
+// triangles are such quads. A thread walks its triangles in ascending
+// flat index and takes a hit only when strictly nearer than its ray's
+// best so far (at first the best t at the call), so it holds the least
+// (t, flat) of its share; the slices of a ray meet in a shared-memory
+// atomicMin, and the block issues one atomicMin a ray with a hit. A
+// thread past the tile's rays gets best t 0 and never hits.
+__global__ void __launch_bounds__(SWEEP_THREADS, 4)
+wave_sweep_staged_kernel(const float* __restrict__ p, const float* __restrict__ d,
+                         const float* __restrict__ table, int k, const int* __restrict__ idx,
+                         int m, int splits, int per_block, float* best_t, int* best_c,
+                         int* best_l, unsigned long long* keys, unsigned* done) {
+  constexpr int RT = STAGED_TILE;
+  constexpr int S = SWEEP_THREADS / RT;
+  static_assert(RT == 32 && (C / 4) / S == 32 / 4, "a warp a slice, a lane a triangle of it");
+  __shared__ __align__(16) float s[COMPS][C];
+  __shared__ unsigned long long s_key[RT];
+  const int tile = blockIdx.x / splits;
+  const int j0 = tile * RT;
+  const int nr = min(RT, m - j0);
+  const int c0 = (blockIdx.x - tile * splits) * per_block;
+  const int c1 = min(k, c0 + per_block);
+  const int slot = threadIdx.x % RT;
+  const int slice = threadIdx.x / RT;
+  // the triangle of the slice this lane looks at for the quad mask:
+  // quad j = lane / 4 of the slice, triangle lane % 4 of it
+  const int mine = 4 * (slice + S * (slot >> 2)) + (slot & 3);
+  stage_cluster(s, table + static_cast<size_t>(c0) * ROW);
+  if (threadIdx.x < RT) s_key[threadIdx.x] = ~0ull;
+  const int ray = slot < nr ? idx[j0 + slot] : -1;
+  const float px = ray >= 0 ? p[3 * ray] : 0.f;
+  const float py = ray >= 0 ? p[3 * ray + 1] : 0.f;
+  const float pz = ray >= 0 ? p[3 * ray + 2] : 0.f;
+  const float dx = ray >= 0 ? d[3 * ray] : 1.f;
+  const float dy = ray >= 0 ? d[3 * ray + 1] : 1.f;
+  const float dz = ray >= 0 ? d[3 * ray + 2] : 1.f;
+  float bt = ray >= 0 ? best_t[ray] : 0.f;
+  int bf = -1;
+  for (int c = c0; c < c1; ++c) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // every thread's copies of this row have landed
+    const float(*r)[C] = s;
+    // bit 4 j set: quad j of the slice holds a triangle with e0 != 0
+    unsigned quads =
+        __ballot_sync(FULL, r[3][mine] != 0.0f || r[4][mine] != 0.0f || r[5][mine] != 0.0f);
+    quads |= quads >> 1;
+    quads |= quads >> 2;
+    quads &= 0x11111111u;
+#pragma unroll 1
+    while (quads != 0) {
+      const int i = 4 * (slice + S * ((__ffs(quads) - 1) >> 2));  // ascending
+      quads &= quads - 1;
+      const float4 ax = *reinterpret_cast<const float4*>(&r[0][i]);
+      const float4 ay = *reinterpret_cast<const float4*>(&r[1][i]);
+      const float4 az = *reinterpret_cast<const float4*>(&r[2][i]);
+      const float4 e0x = *reinterpret_cast<const float4*>(&r[3][i]);
+      const float4 e0y = *reinterpret_cast<const float4*>(&r[4][i]);
+      const float4 e0z = *reinterpret_cast<const float4*>(&r[5][i]);
+      const float4 e1x = *reinterpret_cast<const float4*>(&r[6][i]);
+      const float4 e1y = *reinterpret_cast<const float4*>(&r[7][i]);
+      const float4 e1z = *reinterpret_cast<const float4*>(&r[8][i]);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        float t;
+        if (mt_hit(quad(ax, w), quad(ay, w), quad(az, w), quad(e0x, w), quad(e0y, w),
+                   quad(e0z, w), quad(e1x, w), quad(e1y, w), quad(e1z, w), px, py, pz, dx, dy,
+                   dz, t) &&
+            t < bt) {
+          bt = t + 0.0f;  // -0.0 -> +0.0
+          bf = c * C + i + w;
+        }
+      }
+    }
+    __syncthreads();  // the row is read: the next may be staged over it
+    if (c + 1 < c1) stage_cluster(s, table + static_cast<size_t>(c + 1) * ROW);
+  }
+  if (bf >= 0) atomicMin(&s_key[slot], sweep_key(bt, bf));
+  __syncthreads();
+  if (threadIdx.x < nr && s_key[threadIdx.x] != ~0ull) {
+    atomicMin(keys + j0 + threadIdx.x, s_key[threadIdx.x]);
+  }
+  finish_tile(tile, j0, nr, splits, idx, keys, done, best_t, best_c, best_l);
 }
 
 }  // namespace
@@ -497,24 +698,49 @@ extern "C" int wave_mt_launch(const float* p, const float* d, const float* table
   return static_cast<int>(cudaGetLastError());
 }
 
-// idx (m,) int32 rays to sweep; keys (m,) 64-bit scratch; the state as
-// in wave_mt. k * 128 must fit an int32.
+// wave_sweep blocks resident on one SM of the current device for a tile
+// of r rays (4: a warp a tile; 32: rows staged for a block): the host's
+// sweep plan reads it once a device and tile.
+extern "C" int wave_sweep_blocks_per_sm(int r, int* blocks) {
+  switch (r) {
+    case WARP_TILE:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, wave_sweep_warp_kernel, SWEEP_WARPS * 32, 0));
+    case STAGED_TILE:
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, wave_sweep_staged_kernel, SWEEP_THREADS, 0));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// idx (m,) int32 rays to sweep, in tiles of r (4 or 32); the
+// clusters cut into splits ranges of per_block (the last may be short,
+// none empty); the state as in wave_mt. keys (at least m) and done (at
+// least ceil(m / r)) are the sweep's own: every key ~0 and every counter
+// 0 before the first call, and every call leaves them so. One launch.
+// k * 128 must fit an int32.
 extern "C" int wave_sweep_launch(const float* p, const float* d, const float* table, int k,
-                                 const int* idx, int m, float* best_t, int* best_c,
-                                 int* best_l, unsigned long long* keys, void* stream) {
+                                 const int* idx, int m, int r, int splits, int per_block,
+                                 float* best_t, int* best_c, int* best_l,
+                                 unsigned long long* keys, unsigned* done, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = cudaMemsetAsync(keys, 0xFF, static_cast<size_t>(m) * 8, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // cut each ray's clusters over enough blocks to fill the card
-  int splits = (SWEEP_BLOCKS + m - 1) / m;
-  const int most = (k + SWEEP_WARPS - 1) / SWEEP_WARPS;
-  splits = splits < 1 ? 1 : (splits > most ? most : splits);
-  const int per_block = (k + splits - 1) / splits;
-  splits = (k + per_block - 1) / per_block;
-  wave_sweep_kernel<<<static_cast<unsigned>(m) * splits, SWEEP_WARPS * 32, 0, s>>>(
-      p, d, table, k, idx, splits, per_block, best_t, keys);
-  const cudaError_t e2 = cudaGetLastError();
-  if (e2 != cudaSuccess) return static_cast<int>(e2);
-  wave_sweep_write_kernel<<<(m + 127) / 128, 128, 0, s>>>(idx, m, keys, best_t, best_c, best_l);
-  return static_cast<int>(cudaGetLastError());
+  if (splits < 1 || per_block < 1 || static_cast<long long>(splits - 1) * per_block >= k ||
+      static_cast<long long>(splits) * per_block < k) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (r) {
+    case WARP_TILE: {
+      const unsigned blocks = static_cast<unsigned>((m + WARP_TILE - 1) / WARP_TILE) * splits;
+      wave_sweep_warp_kernel<<<blocks, SWEEP_WARPS * 32, 0, s>>>(
+          p, d, table, k, idx, m, splits, per_block, best_t, best_c, best_l, keys, done);
+      return static_cast<int>(cudaGetLastError());
+    }
+    case STAGED_TILE: {
+      const unsigned blocks = static_cast<unsigned>((m + STAGED_TILE - 1) / STAGED_TILE) * splits;
+      wave_sweep_staged_kernel<<<blocks, SWEEP_THREADS, 0, s>>>(
+          p, d, table, k, idx, m, splits, per_block, best_t, best_c, best_l, keys, done);
+      return static_cast<int>(cudaGetLastError());
+    }
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

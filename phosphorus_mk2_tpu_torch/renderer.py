@@ -48,7 +48,10 @@ class Renderer:
         self.scene = scene
         self.options = options or Options()
         o = self.options
-        if o.checkpoint_dir and o.checkpoint_every:
+        # the JAX Renderer resumes from checkpoint_dir whenever it is set,
+        # whatever checkpoint_every says: rendering from sample 0 instead
+        # would be a different film
+        if o.checkpoint_dir:
             raise NotImplementedError(CHECKPOINT_LATER)
         self.data = scene.build(self.device)
         cluster = o.use_bvh and self.data.num_tris > BRUTE_MAX_TRIS
