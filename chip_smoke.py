@@ -5,7 +5,9 @@
     python3 chip_smoke.py --profile  # every phase, plus a torch.profiler
                                      # trace of one pass of each render
                                      # (the textured terrain's texture
-                                     # lookups and footprints counted)
+                                     # lookups and footprints counted,
+                                     # and of a gradient step's forward
+                                     # and backward)
     python3 chip_smoke.py --upto 3   # stop after phase 3 (no result line)
     python3 chip_smoke.py --sweep-timing [--m 24,25] [--package DIR]
                                      # only wave_sweep at phase 7's shapes
@@ -117,7 +119,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      operations bound and its issue floor (the loop's instructions a
      (ray, row) pair x pairs over 4 warp-instructions a clock on every
      SM), both over the table's real triangles, not its pads; the floor
-     over every lane of every row beside it.
+     over every lane of every row beside it;
+  8. gradients and inverse rendering (integrator/path.py render_pass with
+     gradients, trainable=, sorted_dispatch=; optim.InverseRenderer),
+     every tracer call primal: (1) gradients of color.sum() with respect
+     to emission, lobe_weight and vertices with the kernels and with
+     their plain versions, both on the card: cornell_box 64x64 4 spp
+     depth 4 (brute) and terrain_scene 256x256 1 spp depth 2 (cluster
+     tracer): films at rtol 1e-5, gradients within 1e-4 of each field's
+     max |g| (a bound relative to the field's scale, since a backward
+     that sums with atomics is not bit-stable); (2) tests/test_grad.py's sphere_in_box 16x16
+     gradients on the card against the CPU (the same bound) and its
+     finite-difference checks on the card; (3) bench.py's headline
+     shape, cornell_box 256x256 16 spp depth 4 brute: the forward, the
+     gradient (emission, lobe_weight, vertices) and the scoped gradient
+     (emission, lobe_weight), rays/s and peak memory of each, scoped
+     equal to unscoped within 1e-4 (--profile: the forward and the
+     backward of a 4-spp gradient step traced); (4) bench.py's
+     bmw_fwd_bwd shape on the full-size terrain_scene (1 << 16 pixels,
+     2 spp, depth 3, use_bvh=True, sorted_dispatch=False): gradients
+     finite, front and wave kernels launched; (5) multi_bsdf_scene
+     512x512 depth 9 2 spp with the sorted and the dense lobe dispatch:
+     films bit-equal, both timed; gradients at 256x256 depth 2 within
+     2e-4; (6) InverseRenderer recovering cornell_box's lamp from 0.3x at
+     256x256 (log emission, unbiased loss, 8 spp, depth 3), the criteria
+     of tests/test_optim.py, then a checkpoint resumed in a new
+     InverseRenderer equal to the uninterrupted run within 1e-6.
+     The launches of the timed calls of (3)-(6) count in the kernels
+     line, each counted from 0 just before the call and read just after
+     it; warm-ups, references, comparisons and the resume do not.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -1964,6 +1994,409 @@ def sweep_timing_only(more) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 8: gradients and inverse rendering
+# ---------------------------------------------------------------------------
+
+GRAD_FIELDS = ("emission", "lobe_weight", "vertices")
+# inverse rendering on the card (calibrated on the CPU at 64x64)
+INV_STEPS = 30
+INV_LR = 0.1
+INV_SEED = 0
+
+
+def grad_render(path, data, cam, w, h, spp, depth, tracer, fields, seed=0, mean=False, **kw):
+    """One gradient render through render_pass: the loss color.sum()
+    (mean=True: tests/test_grad.py's color.mean() / 2) and its gradients
+    with respect to ``fields``, each a fresh leaf. Returns (film sums,
+    {field: gradient or None})."""
+    import dataclasses
+
+    leaves = {f: getattr(data, f).detach().clone().requires_grad_() for f in fields}
+    out = path.render_pass(dataclasses.replace(data, **leaves), cam, seed, 0, spp, width=w,
+                           height=h, max_depth=depth, tracer=tracer, **kw)
+    loss = out["color"].mean() / 2.0 if mean else out["color"].sum()
+    loss.backward()
+    return out["color"].detach(), {f: leaves[f].grad for f in fields}
+
+
+def grad_err(a, b):
+    """max |a - b| over b's max |b| (the absolute difference when b is all
+    zero). Gradient tolerances on the card are relative to the field's
+    scale: a backward that sums with atomics is not bit-stable from run
+    to run (the indexing backward these renders take sorts its indices
+    and is: PERF.md, run 8A)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    return err / scale if scale > 0 else err
+
+
+def check_grads(label, got, ref, rel):
+    errs = {}
+    for f in ref:
+        check(got[f] is not None and bool(torch.isfinite(got[f]).all()),
+              f"{label}: the {f} gradient is missing or not finite")
+        errs[f] = grad_err(got[f], ref[f])
+        check(errs[f] <= rel, f"{label}: {f} gradients differ by {errs[f]:.3g} of their scale "
+              f"(limit {rel})")
+    return errs
+
+
+def grads_kernels_vs_plain(path, scenes, terrain, terrain_data, dev):
+    """8.1: gradients with the kernels and with their plain versions, both
+    on the card: cornell_box 64x64 (brute) and the full-size terrain
+    256x256 (cluster tracer); films at rtol 1e-5, gradients within 1e-4
+    of each field's max |g|."""
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+
+    scene = scenes.cornell_box(64, 64)
+    data = scene.build(device=dev)
+    cases = [("cornell_box 64x64 4 spp depth 4 brute", data,
+              camera_to_params(scene.camera, dev), 64, 64, 4, 4,
+              lambda plain: path.make_tracer(data, use_bvh=False, plain=plain)),
+             ("terrain_scene 256x256 1 spp depth 2 use_bvh=True", terrain_data,
+              camera_to_params(terrain.camera, dev), 256, 256, 1, 2,
+              lambda plain: path.make_tracer(terrain_data, use_bvh=True, plain=plain))]
+    for label, d, cam, w, h, spp, depth, tracer in cases:
+        (f_k, g_k), (f_p, g_p) = (grad_render(path, d, cam, w, h, spp, depth, tracer(plain),
+                                              GRAD_FIELDS) for plain in (False, True))
+        diff = float((f_k - f_p).abs().max())
+        check(torch.allclose(f_k, f_p, rtol=1e-5, atol=0.0),
+              f"{label}: the kernels' film differs from the plain film by {diff}")
+        errs = check_grads(label + " kernels vs plain", g_k, g_p, 1e-4)
+        print(f"{label}, grad of color.sum(): kernels vs plain film max |diff| {diff:.3g}; "
+              "gradients, max |diff| over the field's max |g|: "
+              + ", ".join(f"{f} {e:.3g}" for f, e in errs.items()), flush=True)
+
+
+def grads_card_vs_cpu(path, scenes, dev):
+    """8.2: tests/test_grad.py's sphere_in_box 16x16 set-up (2 spp, depth
+    2, seed 0, loss color.mean() / 2) on the card against the CPU, then
+    its finite-difference checks on the card with its eps and tolerances."""
+    import dataclasses
+
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+
+    scene = scenes.sphere_in_box(width=16, height=16)
+    fields = path.SCOPABLE_FIELDS
+    runs = {}
+    for d in (dev, "cpu"):
+        data = scene.build(device=d)
+        cam = camera_to_params(scene.camera, d)
+        tracer = path.make_tracer(data, use_bvh=False)
+        runs[str(d)] = (data, cam, tracer,
+                        grad_render(path, data, cam, 16, 16, 2, 2, tracer, fields, mean=True)[1])
+    data, cam, tracer, g = runs[str(dev)]
+    errs = check_grads("sphere_in_box card vs cpu", g, runs["cpu"][3], 1e-4)
+
+    def mean_at(field, idx, x):
+        a = getattr(data, field).clone()
+        a[idx] = x
+        with torch.no_grad():
+            out = path.render_pass(dataclasses.replace(data, **{field: a}), cam, 0, 0, 2,
+                                   width=16, height=16, max_depth=2, tracer=tracer)
+        return float(out["color"].mean() / 2.0)
+
+    def fd(field, idx, eps):
+        x0 = float(getattr(data, field)[idx])
+        return (mean_at(field, idx, x0 + eps) - mean_at(field, idx, x0 - eps)) / (2 * eps)
+
+    v_idx = int(data.faces.cpu().numpy()[data.tri_mat.cpu().numpy() == 3][0, 0])
+    fds = []
+    for field, idx, eps, rtol, atol in (("emission", (3, 1), 1e-2, 5e-3, 1e-6),
+                                        ("lobe_weight", (0, 0, 0), 1e-3, 2e-2, 1e-6),
+                                        ("vertices", (v_idx, 1), 3e-4, 0.05, 1e-3)):
+        gv, fv = float(g[field][idx]), fd(field, idx, eps)
+        check(math.isfinite(gv) and abs(gv - fv) <= atol + rtol * abs(fv),
+              f"sphere_in_box on the card: d/d {field}{idx} = {gv}, finite difference {fv}")
+        if field != "vertices":
+            check(gv > 0, f"sphere_in_box: d/d {field}{idx} = {gv} is not positive")
+        fds.append(f"{field}{list(idx)} {gv:.6g} vs {fv:.6g} (eps {eps})")
+    print("sphere_in_box 16x16 gradients, card vs cpu (max |diff| over max |g|): "
+          + ", ".join(f"{f} {e:.3g}" for f, e in errs.items())
+          + "; finite differences on the card: " + "; ".join(fds), flush=True)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def profile_step(tag, fwd, bwd):
+    """--profile: the forward of a gradient render (it builds the graph)
+    and its backward, each under torch.profiler: kernels, device busy
+    time and idle share, the largest kernels."""
+    held = []
+    for part, fn in (("forward", lambda: held.append(fwd())), ("backward", lambda: bwd(held[0]))):
+        wall, kernels, _ = device_events(fn)
+        if not kernels:
+            print(f"profile {tag} {part}: no device events traced (wall {wall:.6f} s); "
+                  "device time not measured", flush=True)
+            continue
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+        span = (max(e.time_range.end for e in kernels)
+                - min(e.time_range.start for e in kernels)) / 1e6
+        by_name = {}
+        for e in kernels:
+            n, s = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, s + e.time_range.elapsed_us() / 1e6)
+        print(f"profile {tag} {part}: wall {wall:.6f} s, {len(kernels)} kernels, device busy "
+              f"{busy:.6f} s over a span of {span:.6f} s (idle share {1 - busy / span:.4f} of "
+              f"the span, {1 - busy / wall:.4f} of the wall)", flush=True)
+        for kname, (n, s) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+            print(f"  {s:.6f} s {100 * s / busy:6.2f}% {n:6d}x  {kname[:110]}", flush=True)
+
+
+def full_width_grads(path, scenes, dev, profile, count):
+    """8.3: bench.py:73-132's headline shape, cornell_box 256x256, 16 spp,
+    depth 4, the brute kernels: the forward, the gradient of color.sum()
+    with respect to emission, lobe_weight and vertices, and the scoped
+    gradient (trainable=emission, lobe_weight). The three timed calls are
+    counted, the warm-ups before them and the profiled step after not."""
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+
+    w = h = 256
+    spp, depth = 16, 4
+    scene = scenes.cornell_box(w, h)
+    data = scene.build(device=dev)
+    cam = camera_to_params(scene.camera, dev)
+    tracer = path.make_tracer(data, use_bvh=False)
+    rays = w * h * spp * depth * 2
+    pair = ("emission", "lobe_weight")
+
+    def fwd():
+        with torch.no_grad():
+            return path.render_pass(data, cam, 0, 0, spp, width=w, height=h, max_depth=depth,
+                                    tracer=tracer)["color"]
+
+    fwd()
+    grad_render(path, data, cam, w, h, 1, depth, tracer, GRAD_FIELDS)  # warm-up
+    (film, t_f, mem_f), n_f = count(lambda: timed(fwd))
+    ((film_g, g), t_fb, mem_fb), n_fb = count(lambda: timed(
+        lambda: grad_render(path, data, cam, w, h, spp, depth, tracer, GRAD_FIELDS)))
+    ((_, gs), t_s, mem_s), n_s = count(lambda: timed(
+        lambda: grad_render(path, data, cam, w, h, spp, depth, tracer, pair, trainable=pair)))
+    check(torch.equal(film, film_g), "cornell_box: the gradient render's film is not the forward's")
+    for f in GRAD_FIELDS:
+        check(bool(torch.isfinite(g[f]).all()) and float(g[f].abs().max()) > 0,
+              f"cornell_box 256x256: the {f} gradient is not finite or all zero")
+    errs = check_grads("cornell_box 256x256 scoped vs unscoped", gs, {f: g[f] for f in pair}, 1e-4)
+    res = {"rays": rays, "fwd_s": t_f, "fwd_rays_per_s": rays / t_f, "fwd_peak_bytes": mem_f,
+           "fwd_bwd_s": t_fb, "fwd_bwd_rays_per_s": rays / t_fb, "fwd_bwd_peak_bytes": mem_fb,
+           "scoped_s": t_s, "scoped_rays_per_s": rays / t_s, "scoped_peak_bytes": mem_s,
+           "scoped_vs_full": errs, "launches": {"fwd": n_f, "fwd_bwd": n_fb, "scoped": n_s}}
+    print(f"cornell_box {w}x{h} {spp} spp depth {depth} brute: forward {t_f:.6f} s "
+          f"{rays / t_f / 1e6:.4f} Mrays/s (peak {mem_f} bytes); forward+backward "
+          f"(emission, lobe_weight, vertices) {t_fb:.6f} s {rays / t_fb / 1e6:.4f} Mrays/s "
+          f"(peak {mem_fb} bytes); scoped (emission, lobe_weight) {t_s:.6f} s "
+          f"{rays / t_s / 1e6:.4f} Mrays/s (peak {mem_s} bytes); scoped vs unscoped "
+          + ", ".join(f"{f} {e:.3g}" for f, e in errs.items())
+          + f"; launches forward {n_f}, forward+backward {n_fb}, scoped {n_s}", flush=True)
+    if profile:
+        import dataclasses
+
+        def graph():
+            leaves = {f: getattr(data, f).detach().clone().requires_grad_() for f in GRAD_FIELDS}
+            return path.render_pass(dataclasses.replace(data, **leaves), cam, 0, 0, 4, width=w,
+                                    height=h, max_depth=depth, tracer=tracer)["color"].sum()
+
+        profile_step(f"cornell_box {w}x{h} 4 spp depth {depth} gradient step", graph,
+                     lambda loss: loss.backward())
+    return res
+
+
+def bvh_grads(path, ct, terrain, terrain_data, dev, count):
+    """8.4: bench.py's bmw_fwd_bwd shape (a 1 << 16-pixel wavefront, 2 spp,
+    depth 3, sorted_dispatch=False, trainable=None) on the full-size
+    terrain_scene 256x256 through the cluster tracer; the timed call is
+    counted, the warm-up before it not."""
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+
+    w, h, spp, depth = 256, 256, 2, 3
+    check(w * h == 1 << 16, "the terrain's frame is not a 1 << 16-pixel wavefront")
+    cam = camera_to_params(terrain.camera, dev)
+    tracer = path.make_tracer(terrain_data, use_bvh=True)
+    check(tracer[0].func is ct.intersect_clusters, "the terrain does not take the cluster tracer")
+    grad_render(path, terrain_data, cam, w, h, 1, 1, tracer, GRAD_FIELDS)  # warm-up
+    for k in ct.STATS:
+        ct.STATS[k] = 0
+    ((_, g), secs, mem), counts = count(lambda: timed(lambda: grad_render(
+        path, terrain_data, cam, w, h, spp, depth, tracer, GRAD_FIELDS, sorted_dispatch=False)))
+    for f in GRAD_FIELDS:
+        check(bool(torch.isfinite(g[f]).all()), f"terrain: the {f} gradient is not finite")
+    check(float(g["emission"].abs().max()) > 0, "terrain: the emission gradient is all zero")
+    check(counts["front_full"] > 0 and counts["wave_mt"] > 0,
+          f"terrain gradient render: front or wave kernels not launched ({counts})")
+    rays = w * h * spp * depth * 2
+    s = dict(ct.STATS)
+    print(f"terrain_scene {w}x{h} ({terrain_data.num_tris} triangles) {spp} spp depth {depth} "
+          f"use_bvh=True, grad of color.sum() (emission, lobe_weight, vertices): {secs:.6f} s, "
+          f"{rays / secs / 1e6:.4f} Mrays/s, peak {mem} bytes; launches {counts}; "
+          f"{s['traces']} traces, {s['waves']} waves, {s['syncs']} host syncs, "
+          f"{s['fallback_rays']} exact-fallback rays", flush=True)
+    return {"rays": rays, "s": secs, "rays_per_s": rays / secs, "peak_bytes": mem,
+            "launches": counts, "traced": s}
+
+
+def sorted_dispatch_card(path, scenes, dev, count):
+    """8.5: multi_bsdf_scene 512x512, depth 9, 2 spp, brute, forward with
+    the sorted and the dense dispatch (films bit-equal; timed in turns:
+    sorted, dense, dense, sorted), then gradients at 256x256, depth 2,
+    within 2e-4 of each field's max |g| (tests/test_grad.py's bound). The
+    four timed forwards are counted; the warm-ups and the gradient
+    comparison not."""
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+
+    out = {}
+    for w, h in ((512, 512), (256, 256)):
+        scene = scenes.multi_bsdf_scene(w, h)
+        data = scene.build(device=dev)
+        check(len(data.lobe_types_present) > 2, "multi_bsdf_scene: two lobe types or fewer")
+        cam = camera_to_params(scene.camera, dev)
+        tracer = path.make_tracer(data, use_bvh=False)
+        if w == 512:
+            def fwd(sd):
+                with torch.no_grad():
+                    return path.render_pass(data, cam, 0, 0, 2, width=w, height=h, max_depth=9,
+                                            tracer=tracer, sorted_dispatch=sd)["color"]
+
+            films, secs, runs = {}, {True: [], False: []}, []
+            for sd in (True, False):
+                fwd(sd)  # warm-up
+            for sd in (True, False, False, True):
+                (films[sd], t, _), n = count(lambda: timed(lambda: fwd(sd)))
+                secs[sd].append(t)
+                runs.append({"sorted": sd, "launches": n})
+            check(torch.equal(films[True], films[False]),
+                  f"multi_bsdf_scene: sorted and dense films differ by "
+                  f"{float((films[True] - films[False]).abs().max())}")
+            rays = w * h * 2 * 9 * 2
+            out = {"rays": rays, "sorted_s": secs[True], "dense_s": secs[False],
+                   "sorted_rays_per_s": [rays / t for t in secs[True]],
+                   "dense_rays_per_s": [rays / t for t in secs[False]], "launches": runs}
+            print(f"multi_bsdf_scene {w}x{h} 2 spp depth 9 brute forward: sorted dispatch "
+                  + ", ".join(f"{rays / t / 1e6:.4f}" for t in secs[True])
+                  + " Mrays/s, dense " + ", ".join(f"{rays / t / 1e6:.4f}" for t in secs[False])
+                  + " Mrays/s (in turns sorted, dense, dense, sorted); films bit-equal",
+                  flush=True)
+        else:
+            names = ("emission", "lobe_weight", "lobe_param")
+            (_, gs), (_, gd) = (grad_render(path, data, cam, w, h, 2, 2, tracer, names,
+                                            sorted_dispatch=sd) for sd in (True, False))
+            errs = check_grads("multi_bsdf_scene sorted vs dense gradients", gs, gd, 2e-4)
+            for f in names:
+                check(float(gd[f].abs().max()) > 0, f"multi_bsdf_scene: the {f} gradient is zero")
+            out["grad_sorted_vs_dense"] = errs
+            print(f"multi_bsdf_scene {w}x{h} 2 spp depth 2, grad of color.sum(): sorted vs dense "
+                  + ", ".join(f"{f} {e:.3g}" for f, e in errs.items()), flush=True)
+    return out
+
+
+def inverse_rendering(pt, scenes, dev, count):
+    """8.6: recover cornell_box's lamp from 0.3x its emission with
+    InverseRenderer at 256x256 (emission and lobe_weight trainable, log
+    emission, the unbiased loss, 8 spp, depth 3) against a target
+    rendered on the card; tests/test_optim.py's criteria. Then the
+    optimizer checkpoint: saved, resumed in a new InverseRenderer, 2 more
+    steps equal to the uninterrupted run's within 1e-6. The timed steps
+    are counted; the target render and the steps around the checkpoint
+    not."""
+    from pathlib import Path
+
+    w = h = 256
+    scene = scenes.cornell_box(w, h)
+    lamp = [i for i, m in enumerate(scene.materials) if m.is_emitter][0]
+    true_e = np.asarray(scene.materials[lamp].emission, np.float32)
+    target = pt.Renderer(scene, pt.Options(use_bvh=False, samples_per_pixel=16,
+                                           samples_per_pass=16, path_depth=3),
+                         device="cuda").render()["color"]
+
+    def make():
+        s = scenes.cornell_box(w, h)
+        s.materials[lamp].emission = tuple(0.3 * float(x) for x in true_e)
+        return pt.InverseRenderer(s, target, trainable=("emission", "lobe_weight"),
+                                  learning_rate=INV_LR, spp=8, max_depth=3, use_bvh=False,
+                                  seed=INV_SEED, log_emission=True, unbiased_loss=True,
+                                  device="cuda")
+
+    inv = make()
+    (losses, secs, mem), launches = count(lambda: timed(lambda: inv.run(INV_STEPS)))
+    rec = inv.current_scene().emission[lamp].cpu().numpy()
+    late = float(np.mean(losses[-10:]))
+    rel = float(np.abs(rec / true_e - 1.0).max())
+    check(late < 0.6 * losses[0], f"inverse rendering: late loss {late} is not below 0.6 x "
+          f"the first {losses[0]}")
+    check(rel <= 0.25, f"inverse rendering: lamp {rec} is {rel:.3g} from {true_e}")
+    ck = Path(__file__).resolve().parent / "build" / "chip_smoke_optimizer.npz"
+    ck.parent.mkdir(parents=True, exist_ok=True)
+    inv.save_checkpoint(str(ck))
+    inv.run(2)
+    resumed = make()
+    resumed.load_checkpoint(str(ck))
+    resumed.run(2)
+    diff = max(float((resumed.params[k] - inv.params[k]).detach().abs().max())
+               for k in inv.params)
+    check(diff <= 1e-6, f"the resumed run's parameters differ from the uninterrupted run's by "
+          f"{diff}")
+    ck.unlink()
+    rays = w * h * 8 * 3 * 2
+    per = secs / INV_STEPS
+    print(f"inverse rendering cornell_box {w}x{h} 8 spp depth 3 (emission, lobe_weight; log "
+          f"emission, unbiased loss, lr {INV_LR}): {INV_STEPS} steps {per:.6f} s a step, "
+          f"{rays / per / 1e6:.4f} Mrays/s a step, peak {mem} bytes; loss {losses[0]:.6g} -> "
+          f"mean of the last 10 {late:.6g}; lamp {rec.tolist()} against {true_e.tolist()} "
+          f"(max rel err {rel:.4f}); resumed after a checkpoint, 2 steps: parameters within "
+          f"{diff:.3g} of the uninterrupted run; launches of the {INV_STEPS} steps {launches}",
+          flush=True)
+    return {"steps": INV_STEPS, "s_per_step": per, "rays_per_s_per_step": rays / per,
+            "peak_bytes": mem, "first_loss": losses[0], "late_loss": late,
+            "lamp": rec.tolist(), "true_lamp": true_e.tolist(), "lamp_rel_err": rel,
+            "resume_diff": diff, "launches": launches}
+
+
+def launch_counter(mods, total):
+    """count(fn) -> (fn(), launches): the launch counts of ``mods`` set to
+    0 just before fn() and read just after it, and added to ``total``."""
+    def count(fn):
+        zero_counts(*mods)
+        out = fn()
+        got = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        for k, v in got.items():
+            total[k] += v
+        return out, got
+    return count
+
+
+def gradients_phase(pt, scenes, ct, mt, front, wave, terrain, terrain_data, dev, profile):
+    """Phase 8. Its main path is the timed calls of 8.3-8.6, each counted
+    from 0 just before and read just after; the comparisons with the
+    plain versions (8.1) and with the CPU (8.2), the warm-ups, the
+    references and the checkpoint's resume launch kernels that are not
+    counted."""
+    from phosphorus_mk2_tpu_torch.integrator import path
+
+    grads_kernels_vs_plain(path, scenes, terrain, terrain_data, dev)
+    grads_card_vs_cpu(path, scenes, dev)
+    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
+    count = launch_counter((mt, front, wave), totals)
+    summary = {
+        "full_width": full_width_grads(path, scenes, dev, profile, count),
+        "bvh": bvh_grads(path, ct, terrain, terrain_data, dev, count),
+        "sorted_dispatch": sorted_dispatch_card(path, scenes, dev, count),
+        "inverse_rendering": inverse_rendering(pt, scenes, dev, count),
+    }
+    for k in ("mt_closest", "mt_anyhit", "front_full", "wave_mt"):
+        check(totals[k] > 0, f"phase 8: {k} was not launched")
+    summary["launches_counted"] = totals
+    print(json.dumps({"gradients": summary}), flush=True)
+    return totals
+
+
 def run(profile: bool, upto: int) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2037,6 +2470,14 @@ def run(profile: bool, upto: int) -> int:
                         dev, sass.get("wave_mt_kernel"), rows[0]["sm_clock_mhz"])
     rows.append(sweep_timing(wave, terrain_data.bvh["cluster_rows"], p4, d4, needy,
                              launches, errs, dev, sass, rows[0]["sm_clock_mhz"]))
+    if upto < 8:
+        return 0
+
+    phase("8 gradients and inverse rendering")
+    grad_launches = gradients_phase(pt, scenes, ct, mt, front, wave, terrain, terrain_data, dev,
+                                    profile)
+    for row in rows:  # the kernels line counts the main path of every phase
+        row["launches"] += grad_launches[row["name"]]
 
     print(json.dumps({"tracer_vs_oracle": {"exact_t_ties": ties, "rays": N_RAYS,
                                            "fallback_share": fallback_share,
@@ -2054,7 +2495,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one pass of each main-path render with torch.profiler")
-    ap.add_argument("--upto", type=int, default=7, metavar="PHASE",
+    ap.add_argument("--upto", type=int, default=8, metavar="PHASE",
                     help="stop after this phase (2 or 3: build and parity only, for a "
                          "first look at a new kernel); prints no result line")
     ap.add_argument("--sweep-timing", action="store_true",
@@ -2077,7 +2518,7 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if rc == 0 and args.upto < 7:
+    if rc == 0 and args.upto < 8:
         print(f"chip_smoke: stopped after phase {args.upto}; no result", file=sys.stderr)
     return rc
 

@@ -1,11 +1,15 @@
 """phosphorus_mk2_tpu_torch — the PyTorch/CUDA port of phosphorus_mk2_tpu.
 
-A forward wavefront path tracer for one NVIDIA H100, held against the
-JAX package beside it on the same inputs. Its layout mirrors the JAX
-package (math/, core/, bsdf/, accel/, integrator/, scenes/, renderer.py);
+A differentiable wavefront path tracer for one NVIDIA H100, held against
+the JAX package beside it on the same inputs: forward renders
+(``Renderer``), pixel gradients (``integrator.path.render_pass`` with
+``trainable=``) and inverse rendering (``InverseRenderer``). Its layout
+mirrors the JAX package (math/, core/, bsdf/, accel/, integrator/,
+scenes/, renderer.py, optim.py);
 the brute-force tracer's Möller-Trumbore kernels and the cluster tracer's
-front-table kernels are CUDA C++ for sm_90a (csrc/mt.cu and csrc/front.cu,
-bound in accel/mt.py and accel/front.py).
+front-table and wave kernels are CUDA C++ for sm_90a (csrc/mt.cu,
+csrc/front.cu and csrc/wave.cu, bound in accel/mt.py, accel/front.py and
+accel/wave.py). The kernels are primal: gradients flow around the trace.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for ``cuda`` without a card raises. TF32 is switched off for
@@ -22,6 +26,8 @@ from phosphorus_mk2_tpu_torch.core.camera import Camera  # noqa: E402
 from phosphorus_mk2_tpu_torch.core.options import Options  # noqa: E402
 from phosphorus_mk2_tpu_torch.core.scene import Scene, SceneData  # noqa: E402
 from phosphorus_mk2_tpu_torch.integrator.path import render, render_aovs  # noqa: E402
+from phosphorus_mk2_tpu_torch.optim import InverseRenderer  # noqa: E402
 from phosphorus_mk2_tpu_torch.renderer import Renderer  # noqa: E402
 
-__all__ = ["Camera", "Options", "Renderer", "Scene", "SceneData", "render", "render_aovs"]
+__all__ = ["Camera", "InverseRenderer", "Options", "Renderer", "Scene", "SceneData",
+           "render", "render_aovs"]

@@ -147,6 +147,9 @@ def _check(sc_bmin, sc_bmax, p, d, t_limit, jj, members=None, kk=None):
     tensors = [x for _, x, _ in want]
     if any(x.device != p.device for x in tensors):
         raise ValueError("tables, rays and t_limit must lie on one device")
+    if any(x.requires_grad for x in tensors):
+        raise ValueError("the tracer kernels are primal: trace under torch.no_grad() "
+                         "on detached tensors, not on tensors that require grad")
     if not 1 <= jj <= k2:
         raise ValueError(f"jj must be in [1, K2 = {k2}], got {jj}")
     if kk is not None and kk < 1:

@@ -166,6 +166,9 @@ def _check(table, p, d, tmax=None, cols=None):
         tensors.append(tmax)
     if any(x.device != table.device for x in tensors):
         raise ValueError("table, rays and tmax must lie on one device")
+    if any(x.requires_grad for x in tensors):
+        raise ValueError("the tracer kernels are primal: trace under torch.no_grad() "
+                         "on detached tensors, not on tensors that require grad")
     if table.is_cuda:
         if not all(x.is_contiguous() for x in tensors):
             raise ValueError("the CUDA kernels take contiguous tensors")

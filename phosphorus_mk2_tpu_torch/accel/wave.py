@@ -142,6 +142,9 @@ def _check_table(table, packed, strided=()):
         raise ValueError(f"table must be (K, 9, C) float32, got {tuple(table.shape)} {table.dtype}")
     if any(x.device != table.device for _, x in (*packed, *strided)):
         raise ValueError("the table and every other tensor must lie on one device")
+    if table.requires_grad or any(x.requires_grad for _, x in (*packed, *strided)):
+        raise ValueError("the tracer kernels are primal: trace under torch.no_grad() "
+                         "on detached tensors, not on tensors that require grad")
     if not table.is_contiguous():
         raise ValueError("the row table must be contiguous")
     if table.is_cuda:

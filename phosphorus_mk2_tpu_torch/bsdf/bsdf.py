@@ -7,8 +7,9 @@ sample reuse), then folds in the values and pdfs of flag-compatible
 other lobes and averages the pdf.
 
 The container is a struct of tensors over the wavefront: per-hit lobe
-arrays gathered from the material tables by material id. Lobe dispatch
-is dense (see bsdf/lobes.py). Textures modulate lobe weights
+arrays gathered from the material tables by material id. Lobes are
+dispatched densely or, under the JAX package's gate, by type-sorted
+segments (see bsdf/lobes.py); both give the same values. Textures modulate lobe weights
 (``apply_textures``) and emission (``emission_at``, ``emission_from_row``,
 ``env_emission_at``); all of it is the identity for untextured scenes.
 """
@@ -16,7 +17,12 @@ from __future__ import annotations
 
 import torch
 
-from phosphorus_mk2_tpu_torch.bsdf.lobes import eval_lobe, sample_lobe
+from phosphorus_mk2_tpu_torch.bsdf.lobes import (
+    eval_lobe,
+    eval_lobe_sorted,
+    sample_lobe,
+    sample_lobe_sorted,
+)
 from phosphorus_mk2_tpu_torch.core.material import (
     FLAG_REFLECT,
     FLAG_SPECULAR,
@@ -98,9 +104,50 @@ def hit_row_tables(scene, attr):
     return hit_f, hit_i, layout
 
 
-def gather_hit_rows(hit_f, idx):
-    """``hit_f[idx]``: one row gather for the whole hit side."""
-    return hit_f[idx]
+def gather_hit_rows(hit_f, idx, layout=None, trainable=None):
+    """``hit_f[idx]``, one row gather for the whole hit side, with the
+    gradient restricted to the trainable fields' columns (trainable=None:
+    every column differentiable).
+
+    The backward of a gather scatters its whole (N, W) cotangent into
+    (F, W) even when only a few columns carry gradient, and every
+    column drags its table-building chain into the graph. So the gather
+    is split into column blocks: the blocks of non-trainable fields read
+    a detached table, and backward scatters only the trainable blocks.
+      vertices / normals -> the attribute block [0, attr_w)
+      emission           -> [aw, aw + 3)
+      lobe_weight        -> [aw + 3, aw + 3 + 3 lu)
+      lobe_param         -> [aw + 3 + 3 lu, aw + 3 + lu (3 + p))
+    The NEE pdf column and the integer tail are always cut (they feed
+    only detached MIS weights and discrete ids).
+    """
+    if trainable is None:
+        return hit_f[idx]
+    aw, lu, p = layout["attr_w"], layout["lu"], layout["p"]
+    t = frozenset(trainable)
+    segs = [
+        (0, aw, bool(t & {"vertices", "normals"})),
+        (aw, aw + 3, "emission" in t),
+        (aw + 3, aw + 3 + 3 * lu, "lobe_weight" in t),
+        (aw + 3 + 3 * lu, aw + 3 + lu * (3 + p), "lobe_param" in t),
+        (aw + 3 + lu * (3 + p), hit_f.shape[1], False),
+    ]
+    merged = []  # adjacent blocks of the same kind in one gather
+    for c0, c1, d in segs:
+        if c1 <= c0:
+            continue
+        if merged and merged[-1][2] == d:
+            merged[-1] = (merged[-1][0], c1, d)
+        else:
+            merged.append((c0, c1, d))
+    if all(not d for _, _, d in merged):
+        return hit_f.detach()[idx]
+    if all(d for _, _, d in merged):
+        return hit_f[idx]
+    return torch.cat(
+        [(hit_f[:, c0:c1] if d else hit_f.detach()[:, c0:c1])[idx] for c0, c1, d in merged],
+        dim=1,
+    )
 
 
 def unpack_hit_rows(scene, hrow, layout):
@@ -284,9 +331,18 @@ def _hemisphere_match(flags_i, n, wi, wo):
     return torch.where(reflect, is_refl, is_trans)
 
 
+def _sorted_gate(lobes: dict, lanes: int) -> bool:
+    """The JAX package's gate for the type-sorted dispatch: more than two
+    lobe types in the scene, a wide enough batch, and the caller's
+    ``sorted_ok`` (default on)."""
+    present = lobes.get("present")
+    return bool(present and len(present) > 2 and lanes >= 4096
+                and lobes.get("sorted_ok", True))
+
+
 def _eval_all_slots(lobes: dict, n, wi, wo):
-    """One flattened eval_lobe over the (hit x lobe slot) axis.
-    Returns (e, pdf) of shape (N, L)."""
+    """One flattened eval_lobe over the (hit x lobe slot) axis, sorted by
+    type under ``_sorted_gate``. Returns (e, pdf) of shape (N, L)."""
     num = wi.shape[0]
     L = lobes.get("max_lobes", MAX_LOBES)
     flat_type = lobes["type"][:, :L].reshape(-1)
@@ -295,10 +351,13 @@ def _eval_all_slots(lobes: dict, n, wi, wo):
     def tile(x):
         return x[:, None, :].expand(num, L, 3).reshape(num * L, 3)
 
-    e, pdf = eval_lobe(
-        flat_type, flat_param, tile(n), tile(wi), tile(wo),
-        present=lobes.get("present"),
-    )
+    present = lobes.get("present")
+    if _sorted_gate(lobes, num * L):
+        e, pdf = eval_lobe_sorted(flat_type, flat_param, tile(n), tile(wi), tile(wo),
+                                  present)
+    else:
+        e, pdf = eval_lobe(flat_type, flat_param, tile(n), tile(wi), tile(wo),
+                           present=present)
     return e.reshape(num, L), pdf.reshape(num, L)
 
 
@@ -356,9 +415,11 @@ def bsdf_sample(lobes: dict, n, wi, u2):
     flags_sel = sel_slot(lobes["flags"])
 
     remapped = torch.stack([u_remap, u2[..., 1]], dim=-1)
-    f_s, wo, pdf = sample_lobe(
-        type_sel, param_sel, n, wi, remapped, present=lobes.get("present")
-    )
+    present = lobes.get("present")
+    if _sorted_gate(lobes, wi.shape[0]):
+        f_s, wo, pdf = sample_lobe_sorted(type_sel, param_sel, n, wi, remapped, present)
+    else:
+        f_s, wo, pdf = sample_lobe(type_sel, param_sel, n, wi, remapped, present=present)
 
     selected_valid = pdf != 0.0
     result = f_s[..., None] * weight_sel

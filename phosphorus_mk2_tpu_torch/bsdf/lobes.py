@@ -1,13 +1,19 @@
-"""Per-lobe-type BSDF evaluation and sampling, dense over a wavefront.
+"""Per-lobe-type BSDF evaluation and sampling over a wavefront.
 
 Counterpart of ``phosphorus_mk2_tpu/bsdf/lobes.py`` (reference
 src/bsdf/{lambert,oren_nayar,reflection,refraction,microfacet,sheen}.hpp)
-with the same y-up tangent-space math. Every present type is evaluated
-over the whole wavefront and the result selected by type code.
-
-This slice ports the dense dispatch only. The JAX package's type-sorted
-dispatch computes the same values in another order; it comes with the
-gradient slice of the port.
+with the same y-up tangent-space math. Each lobe type's evaluation and
+sampling is written once (``EVALS``, ``SAMPLERS``), and two dispatches
+run them with the same values:
+  * dense (``eval_lobe``, ``sample_lobe``): every present type over the
+    whole wavefront, the result selected by type code;
+  * type-sorted (``eval_lobe_sorted``, ``sample_lobe_sorted``, the
+    reference's material-bucketed deferred shading): lanes sorted stably
+    by type, each type's function on its own exact segment, the inverse
+    permutation after. The JAX package runs fixed chunks with a dynamic
+    trip count and so needs a custom_vjp; here the segments are exact
+    slices (one host read of the per-type counts), plain autograd
+    differentiates them, and no lane ever runs another type's function.
 
 Direction conventions follow the reference call sites:
   * eval(wi, wo): wi toward the light, wo toward the viewer in NEE; the
@@ -21,6 +27,7 @@ cook-torrance fresnel and GGX Lambda's alpha = sqrt(ax*ay).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,6 +36,7 @@ from phosphorus_mk2_tpu_torch.core.material import (
     DIFFUSE,
     MICROFACET,
     MICROFACET_REFRACT,
+    NUM_LOBE_TYPES,
     OREN_NAYAR,
     REFLECTION,
     REFRACTION,
@@ -38,7 +46,15 @@ from phosphorus_mk2_tpu_torch.core.material import (
 from phosphorus_mk2_tpu_torch.math import frame as tsf
 from phosphorus_mk2_tpu_torch.math.fresnel import dielectric
 from phosphorus_mk2_tpu_torch.math.sampling import cosine_hemisphere
-from phosphorus_mk2_tpu_torch.math.vec import dot, normalize, safe_pow, safe_sqrt
+from phosphorus_mk2_tpu_torch.math.vec import (
+    clip,
+    dot,
+    maximum,
+    minimum,
+    normalize,
+    safe_pow,
+    safe_sqrt,
+)
 
 INV_PI = 1.0 / math.pi
 
@@ -66,7 +82,7 @@ def _safe_div(a, b, eps=0.0):
 def ggx_D(ax, ay, v):
     """v in the local (y-up) frame."""
     cos2 = tsf.cos2_theta(v)
-    sin2 = torch.clamp(1.0 - cos2, min=0.0)
+    sin2 = maximum(1.0 - cos2, 0.0)
     tan2 = _safe_div(sin2, cos2)
     cos4 = cos2 * cos2
     e = (_safe_div(tsf.cos2_phi(v), ax * ax) + _safe_div(tsf.sin2_phi(v), ay * ay)) * tan2
@@ -76,7 +92,7 @@ def ggx_D(ax, ay, v):
 
 def ggx_Lambda(ax, ay, v):
     cos2 = tsf.cos2_theta(v)
-    sin2 = torch.clamp(1.0 - cos2, min=0.0)
+    sin2 = maximum(1.0 - cos2, 0.0)
     abs_tan = safe_sqrt(_safe_div(sin2, cos2))
     # reference quirk: alpha = sqrt(cos2_phi*ax*ay + sin2_phi*ax*ay) = sqrt(ax*ay)
     alpha = safe_sqrt(ax * ay)
@@ -110,7 +126,7 @@ def ggx_sample_slope(cos_theta, u, v):
     A = 2.0 * u / g1 - 1.0
     denom = A * A - 1.0
     tmp = _safe_div(1.0, denom)
-    tmp = torch.clamp(tmp, max=1e10)
+    tmp = minimum(tmp, 1e10)
     B = tan_theta
     Dterm = safe_sqrt(B * B * tmp * tmp - (A * A - B * B) * tmp)
     slope_x1 = B * tmp - Dterm
@@ -148,7 +164,7 @@ def ggx_sample_wh(ax, ay, li, u2):
         ggx_D(ax, ay, wh)
         * ggx_G1(ax, ay, li)
         * dot(li, wh).abs()
-        / torch.clamp(tsf.cos_theta(li).abs(), min=1e-12)
+        / maximum(tsf.cos_theta(li).abs(), 1e-12)
     )
     return wh, pdf
 
@@ -186,7 +202,7 @@ def sheen_Lambda(r, v):
     l = torch.where(ct < 0.5, _sheen_L(ct, r), 2.0 * L5 - _sheen_L(1.0 - ct, r))
     # clamp the log-space fit before exp: dense dispatch evaluates sheen
     # on every lane, and off-type roughness extrapolates it to inf
-    return torch.exp(torch.clamp(l, max=60.0))
+    return torch.exp(minimum(l, 60.0))
 
 
 def sheen_G(r, wi, wo):
@@ -241,7 +257,7 @@ def ct_pdf(ax, ay, n_frame, wi, wo):
 def sheen_f(r, n_frame, wi, wo):
     # clamp to sheen's domain (0, 1]: dense dispatch runs sheen on every
     # lane, and off-type "roughness" would drive the fit into inf
-    r = torch.clamp(r, 5e-3, 1.0)
+    r = clip(r, 5e-3, 1.0)
     li = tsf.to_local(n_frame, wi)
     lo = tsf.to_local(n_frame, wo)
     whs = li + lo
@@ -314,7 +330,7 @@ def oren_nayar_f(a, b, n_frame, wi, wo):
 
     dcos = tsf.cos_phi(li) * tsf.cos_phi(lo) + tsf.sin_phi(li) * tsf.sin_phi(lo)
     max_cos = torch.where(
-        (sin_ti > 1e-4) & (sin_to > 1e-4), torch.clamp(dcos, min=0.0), 0.0
+        (sin_ti > 1e-4) & (sin_to > 1e-4), maximum(dcos, 0.0), 0.0
     )
     i_gt_o = cos_ti > cos_to
     sin_alpha = torch.where(i_gt_o, sin_to, sin_ti)
@@ -325,8 +341,195 @@ def oren_nayar_f(a, b, n_frame, wi, wo):
 
 
 # ---------------------------------------------------------------------------
-# Dense per-type eval (reference eval(), src/bsdf.cpp:29-108)
+# Per-type evaluation and sampling (reference eval(), src/bsdf.cpp:29-108;
+# bsdf_t::sample, :133-224), each lobe type's arithmetic written once: the
+# dense dispatch runs every present type over the whole wavefront, the
+# type-sorted dispatch (JAX lobes.py:338-410, :646-739) each type on its
+# own lanes.
 # ---------------------------------------------------------------------------
+
+class _Lanes:
+    """A batch of lobe lanes (params (N, P), shading normals n and wi
+    (N, 3); wo (N, 3) to evaluate, u2 (N, 2) to sample) with the work that
+    several lobe types share, each part made once, at its first use. The
+    dense dispatch hands one _Lanes of the whole wavefront to every
+    present type, the sorted dispatch one of each type's segment."""
+
+    def __init__(self, params, n, wi, wo=None, u2=None):
+        self.params, self.n, self.wi, self.wo, self.u2 = params, n, wi, wo, u2
+
+    @functools.cached_property
+    def n_frame(self):
+        return tsf.make_frame(self.n)
+
+    @functools.cached_property
+    def n_wi(self):
+        return dot(self.n, self.wi)
+
+    @functools.cached_property
+    def li(self):
+        return tsf.to_local(self.n_frame, self.wi)
+
+    @functools.cached_property
+    def ones(self):
+        return torch.ones_like(self.n_wi)
+
+    @functools.cached_property
+    def pdf_cosine_quirk(self):
+        return self.n_wi * INV_PI  # reference quirk: cos of the wi arg
+
+    @functools.cached_property
+    def cosine(self):
+        """The cosine-weighted warp of diffuse, oren-nayar and sheen:
+        (wo, pdf)."""
+        cos_dir, cos_pdf = cosine_hemisphere(self.u2)
+        return tsf.to_world(self.n_frame, cos_dir), cos_pdf
+
+    @functools.cached_property
+    def ggx(self):
+        """The visible-normal half vector of both GGX lobes: (wh, pdf,
+        li.wh)."""
+        wh, dpdf = ggx_sample_wh(self.params[..., 0], self.params[..., 1], self.li, self.u2)
+        return wh, dpdf, dot(self.li, wh)
+
+
+def _eval_diffuse(s):
+    return torch.full_like(s.n_wi, INV_PI), s.pdf_cosine_quirk
+
+
+def _eval_oren_nayar(s):
+    return (oren_nayar_f(s.params[..., 1], s.params[..., 2], s.n_frame, s.wi, s.wo),
+            s.pdf_cosine_quirk)
+
+
+def _eval_microfacet(s):
+    ax, ay = s.params[..., 0], s.params[..., 1]
+    return ct_f(ax, ay, s.n_frame, s.wi, s.wo), ct_pdf(ax, ay, s.n_frame, s.wi, s.wo)
+
+
+def _eval_microfacet_refract(s):
+    ax, ay, eta = s.params[..., 0], s.params[..., 1], s.params[..., 2]
+    return (ct_refract_f(ax, ay, eta, s.n_frame, s.wi, s.wo),
+            ct_refract_pdf(ax, ay, eta, s.n_frame, s.wi, s.wo))
+
+
+def _eval_sheen(s):
+    return sheen_f(s.params[..., 0], s.n_frame, s.wi, s.wo), s.pdf_cosine_quirk
+
+
+# REFLECTION / REFRACTION / TRANSPARENT evaluate to 0 (specular)
+EVALS = {
+    DIFFUSE: _eval_diffuse,
+    OREN_NAYAR: _eval_oren_nayar,
+    MICROFACET: _eval_microfacet,
+    MICROFACET_REFRACT: _eval_microfacet_refract,
+    SHEEN: _eval_sheen,
+}
+
+
+def _sample_diffuse(s):
+    wo, pdf = s.cosine
+    return torch.full_like(pdf, INV_PI), wo, pdf
+
+
+def _sample_oren_nayar(s):
+    wo, pdf = s.cosine
+    return oren_nayar_f(s.params[..., 1], s.params[..., 2], s.n_frame, s.wi, wo), wo, pdf
+
+
+def _sample_sheen(s):
+    wo, pdf = s.cosine
+    return sheen_f(s.params[..., 0], s.n_frame, s.wi, wo), wo, pdf
+
+
+def _sample_reflection(s):
+    # mirror reflection (reference reflection::sample)
+    return s.ones, -s.wi + (2.0 * s.n_wi)[..., None] * s.n, s.ones
+
+
+def _sample_refraction(s):
+    # pure refraction (reference refraction::sample)
+    eta0 = s.params[..., 0]
+    cos_t = s.n_wi
+    sin_t = maximum(1.0 - cos_t * cos_t, 0.0)
+    entering = cos_t > 0.0
+    nn = torch.where(entering[..., None], s.n, -s.n)
+    eta_r = torch.where(entering, _safe_div(1.0, eta0, eps=0.0), eta0)
+    arg = 1.0 - eta_r * eta_r * sin_t
+    nk = eta_r * cos_t.abs() - safe_sqrt(arg)
+    wo = -s.wi * eta_r[..., None] + nn * nk[..., None]
+    return torch.where(arg >= 0.0, 1.0, 0.0), wo, s.ones
+
+
+def _sample_microfacet(s):
+    # GGX reflect (reference cook_torrance::sample)
+    ax, ay = s.params[..., 0], s.params[..., 1]
+    wh, dpdf, li_wh = s.ggx
+    li = s.li
+    lo = -li + (2.0 * li_wh)[..., None] * wh
+    wo = tsf.to_world(s.n_frame, lo)
+    pdf = dpdf * _safe_div(1.0, 4.0 * li_wh)
+    f = ct_f(ax, ay, s.n_frame, s.wi, wo)
+    ok = (li[..., 1] != 0.0) & (li_wh >= 0.0) & tsf.ts_in_same_hemisphere(li, lo)
+    return torch.where(ok, f, 0.0), wo, torch.where(ok, pdf, 0.0)
+
+
+def _sample_microfacet_refract(s):
+    # GGX refract (reference cook_torrance::refract::sample)
+    ax, ay, eta_p = s.params[..., 0], s.params[..., 1], s.params[..., 2]
+    wh, dpdf, li_wh = s.ggx
+    li = s.li
+    eta_t = torch.where(li[..., 1] > 0.0, _safe_div(1.0, eta_p), eta_p)
+    cos_ti = li_wh
+    sin2_ti = maximum(1.0 - cos_ti * cos_ti, 0.0)
+    sin2_tt = eta_t * eta_t * sin2_ti
+    cos_tt = safe_sqrt(1.0 - sin2_tt)
+    lo = -li * eta_t[..., None] + (eta_t * cos_ti - cos_tt)[..., None] * wh
+    sqrt_denom = dot(li, wh) + eta_t * dot(lo, wh)
+    dwh_dwi = (
+        (eta_t * eta_t * dot(lo, wh)) * _safe_div(1.0, sqrt_denom * sqrt_denom)
+    ).abs()
+    wo = tsf.to_world(s.n_frame, lo)
+    pdf = dpdf * dwh_dwi
+    f = ct_refract_f(ax, ay, eta_p, s.n_frame, s.wi, wo)
+    ok = (li[..., 1] != 0.0) & (li_wh >= 0.0) & (sin2_tt < 1.0)
+    # eta == 1 passthrough branch (reference refract::sample:127-135)
+    passthrough = eta_p == 1.0
+    f = torch.where(passthrough, 1.0, torch.where(ok, f, 0.0))
+    pdf = torch.where(passthrough, 1.0, torch.where(ok, pdf, 0.0))
+    wo = torch.where(passthrough[..., None], -s.wi, wo)
+    return f, wo, pdf
+
+
+def _sample_transparent(s):
+    # transparent passthrough (reference bsdf.cpp:205-214)
+    return s.ones, -s.wi, s.ones
+
+
+SAMPLERS = {
+    DIFFUSE: _sample_diffuse,
+    OREN_NAYAR: _sample_oren_nayar,
+    SHEEN: _sample_sheen,
+    REFLECTION: _sample_reflection,
+    REFRACTION: _sample_refraction,
+    MICROFACET: _sample_microfacet,
+    MICROFACET_REFRACT: _sample_microfacet_refract,
+    TRANSPARENT: _sample_transparent,
+}
+
+
+def _dense_dispatch(fns, present, lobe_type, s, outs):
+    """Run fns[T] on every lane of ``s`` for each present type T and keep
+    each lane's own type's result; lanes of other types keep ``outs``
+    (zeros)."""
+    present = set(present) if present else set(ALL_TYPES)
+    for t, fn in fns.items():
+        if t in present:
+            sel = lobe_type == t
+            outs = [torch.where(sel.reshape(sel.shape + (1,) * (o.dim() - 1)), r, o)
+                    for r, o in zip(fn(s), outs)]
+    return tuple(outs)
+
 
 def eval_lobe(lobe_type, params, n, wi, wo, present=None):
     """Evaluate one lobe slot for every hit; dense type dispatch.
@@ -336,151 +539,60 @@ def eval_lobe(lobe_type, params, n, wi, wo, present=None):
     skipped). Returns (f (N,), pdf (N,)); REFLECTION, REFRACTION and
     TRANSPARENT evaluate to 0 (specular).
     """
-    present = set(present) if present else set(ALL_TYPES)
-    n_frame = tsf.make_frame(n)
-    n_wi = dot(n, wi)
-    pdf_cosine_quirk = n_wi * INV_PI  # reference quirk: cos of the wi arg
+    zero = torch.zeros(wi.shape[:-1], dtype=wi.dtype, device=wi.device)
+    return _dense_dispatch(EVALS, present, lobe_type, _Lanes(params, n, wi, wo=wo),
+                           (zero, zero))
 
-    branches = {}
-    if DIFFUSE in present:
-        branches[DIFFUSE] = (torch.full_like(n_wi, INV_PI), pdf_cosine_quirk)
-    if OREN_NAYAR in present:
-        branches[OREN_NAYAR] = (
-            oren_nayar_f(params[..., 1], params[..., 2], n_frame, wi, wo),
-            pdf_cosine_quirk,
-        )
-    if MICROFACET in present:
-        ax, ay = params[..., 0], params[..., 1]
-        branches[MICROFACET] = (
-            ct_f(ax, ay, n_frame, wi, wo),
-            ct_pdf(ax, ay, n_frame, wi, wo),
-        )
-    if MICROFACET_REFRACT in present:
-        ax, ay, eta = params[..., 0], params[..., 1], params[..., 2]
-        branches[MICROFACET_REFRACT] = (
-            ct_refract_f(ax, ay, eta, n_frame, wi, wo),
-            ct_refract_pdf(ax, ay, eta, n_frame, wi, wo),
-        )
-    if SHEEN in present:
-        branches[SHEEN] = (sheen_f(params[..., 0], n_frame, wi, wo), pdf_cosine_quirk)
-
-    f = torch.zeros_like(n_wi)
-    pdf = torch.zeros_like(n_wi)
-    for t, (ft, pt) in branches.items():
-        sel = lobe_type == t
-        f = torch.where(sel, ft, f)
-        pdf = torch.where(sel, pt, pdf)
-    return f, pdf
-
-
-# ---------------------------------------------------------------------------
-# Dense per-type sampling (reference bsdf_t::sample, src/bsdf.cpp:133-224)
-# ---------------------------------------------------------------------------
 
 def sample_lobe(lobe_type, params, n, wi, u2, present=None):
-    """Sample one (already selected) lobe for every hit.
-    Returns (f (N,), wo (N,3), pdf (N,))."""
-    present = set(present) if present else set(ALL_TYPES)
-    n_frame = tsf.make_frame(n)
-    li = tsf.to_local(n_frame, wi)
-    n_wi = dot(n, wi)
-    ones = torch.ones_like(n_wi)
+    """Sample one (already selected) lobe for every hit; dense type
+    dispatch. Returns (f (N,), wo (N,3), pdf (N,))."""
+    zero = torch.zeros(wi.shape[:-1], dtype=wi.dtype, device=wi.device)
+    return _dense_dispatch(SAMPLERS, present, lobe_type, _Lanes(params, n, wi, u2=u2),
+                           (zero, torch.zeros_like(wi), zero))
 
-    branches = {}
 
-    if {DIFFUSE, OREN_NAYAR, SHEEN} & present:
-        # cosine-weighted warp shared by diffuse / oren-nayar / sheen
-        cos_dir, cos_pdf = cosine_hemisphere(u2)
-        wo_cos = tsf.to_world(n_frame, cos_dir)
-        if DIFFUSE in present:
-            branches[DIFFUSE] = (torch.full_like(cos_pdf, INV_PI), wo_cos, cos_pdf)
-        if OREN_NAYAR in present:
-            branches[OREN_NAYAR] = (
-                oren_nayar_f(params[..., 1], params[..., 2], n_frame, wi, wo_cos),
-                wo_cos,
-                cos_pdf,
-            )
-        if SHEEN in present:
-            branches[SHEEN] = (
-                sheen_f(params[..., 0], n_frame, wi, wo_cos), wo_cos, cos_pdf
-            )
+def _sorted_dispatch(fns, present, lobe_type, lanes, out_shapes):
+    """Run fns[T] on the lanes of type T only, for each present type with
+    a function: a stable sort by type, the per-type counts read once on
+    the host, each type's function on a _Lanes of its exact segment, and
+    the results put back in lane order. Lanes of other types get zeros.
+    lanes: the _Lanes fields by name; out_shapes: the trailing shape of
+    each output."""
+    num = lobe_type.shape[0]
+    order = torch.argsort(lobe_type, stable=True)
+    counts = torch.bincount(lobe_type, minlength=NUM_LOBE_TYPES).tolist()
+    lanes_s = {k: v[order] for k, v in lanes.items()}
+    run = set(present) & set(fns)
+    ref = lanes["wi"]
+    pieces = [[] for _ in out_shapes]
+    off = 0
+    for T, cnt in enumerate(counts):
+        if cnt:
+            if T in run:
+                outs = fns[T](_Lanes(**{k: v[off:off + cnt] for k, v in lanes_s.items()}))
+            else:
+                outs = [torch.zeros((cnt, *shp), dtype=ref.dtype, device=ref.device)
+                        for shp in out_shapes]
+            for k, o in enumerate(outs):
+                pieces[k].append(o)
+        off += cnt
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(num, dtype=order.dtype, device=order.device)
+    return tuple(torch.cat(p)[inv] if p else
+                 torch.zeros((0, *shp), dtype=ref.dtype, device=ref.device)
+                 for p, shp in zip(pieces, out_shapes))
 
-    if REFLECTION in present:
-        # mirror reflection (reference reflection::sample)
-        wo_refl = -wi + (2.0 * n_wi)[..., None] * n
-        branches[REFLECTION] = (ones, wo_refl, ones)
 
-    if REFRACTION in present:
-        # pure refraction (reference refraction::sample)
-        eta0 = params[..., 0]
-        cos_t = n_wi
-        sin_t = torch.clamp(1.0 - cos_t * cos_t, min=0.0)
-        entering = cos_t > 0.0
-        nn = torch.where(entering[..., None], n, -n)
-        eta_r = torch.where(entering, _safe_div(1.0, eta0, eps=0.0), eta0)
-        arg = 1.0 - eta_r * eta_r * sin_t
-        dnp = safe_sqrt(arg)
-        nk = eta_r * cos_t.abs() - dnp
-        wo_refr = -wi * eta_r[..., None] + nn * nk[..., None]
-        f_refr = torch.where(arg >= 0.0, 1.0, 0.0)
-        branches[REFRACTION] = (f_refr, wo_refr, ones)
+def eval_lobe_sorted(lobe_type, params, n, wi, wo, present):
+    """eval_lobe by type-sorted segments; the same (f, pdf)."""
+    present = present or ALL_TYPES
+    return _sorted_dispatch(EVALS, present, lobe_type,
+                            dict(params=params, n=n, wi=wi, wo=wo), ((), ()))
 
-    if {MICROFACET, MICROFACET_REFRACT} & present:
-        ax, ay = params[..., 0], params[..., 1]
-        wh, dpdf = ggx_sample_wh(ax, ay, li, u2)
-        li_wh = dot(li, wh)
 
-    if MICROFACET in present:
-        # GGX reflect (reference cook_torrance::sample)
-        lo_mf = -li + (2.0 * li_wh)[..., None] * wh
-        wo_mf = tsf.to_world(n_frame, lo_mf)
-        pdf_mf = dpdf * _safe_div(1.0, 4.0 * li_wh)
-        f_mf_val = ct_f(ax, ay, n_frame, wi, wo_mf)
-        ok_mf = (
-            (li[..., 1] != 0.0)
-            & (li_wh >= 0.0)
-            & tsf.ts_in_same_hemisphere(li, lo_mf)
-        )
-        branches[MICROFACET] = (
-            torch.where(ok_mf, f_mf_val, 0.0),
-            wo_mf,
-            torch.where(ok_mf, pdf_mf, 0.0),
-        )
-
-    if MICROFACET_REFRACT in present:
-        # GGX refract (reference cook_torrance::refract::sample)
-        eta_p = params[..., 2]
-        eta_t = torch.where(li[..., 1] > 0.0, _safe_div(1.0, eta_p), eta_p)
-        cos_ti = li_wh
-        sin2_ti = torch.clamp(1.0 - cos_ti * cos_ti, min=0.0)
-        sin2_tt = eta_t * eta_t * sin2_ti
-        cos_tt = safe_sqrt(1.0 - sin2_tt)
-        lo_t = -li * eta_t[..., None] + (eta_t * cos_ti - cos_tt)[..., None] * wh
-        sqrt_denom = dot(li, wh) + eta_t * dot(lo_t, wh)
-        dwh_dwi = (
-            (eta_t * eta_t * dot(lo_t, wh)) * _safe_div(1.0, sqrt_denom * sqrt_denom)
-        ).abs()
-        wo_mfr = tsf.to_world(n_frame, lo_t)
-        pdf_mfr = dpdf * dwh_dwi
-        f_mfr_val = ct_refract_f(ax, ay, eta_p, n_frame, wi, wo_mfr)
-        ok_mfr = (li[..., 1] != 0.0) & (li_wh >= 0.0) & (sin2_tt < 1.0)
-        # eta == 1 passthrough branch (reference refract::sample:127-135)
-        passthrough = eta_p == 1.0
-        f_mfr = torch.where(passthrough, 1.0, torch.where(ok_mfr, f_mfr_val, 0.0))
-        pdf_mfr = torch.where(passthrough, 1.0, torch.where(ok_mfr, pdf_mfr, 0.0))
-        wo_mfr = torch.where(passthrough[..., None], -wi, wo_mfr)
-        branches[MICROFACET_REFRACT] = (f_mfr, wo_mfr, pdf_mfr)
-
-    if TRANSPARENT in present:
-        # transparent passthrough (reference bsdf.cpp:205-214)
-        branches[TRANSPARENT] = (ones, -wi, ones)
-
-    f = torch.zeros_like(n_wi)
-    pdf = torch.zeros_like(n_wi)
-    wo = torch.zeros_like(wi)
-    for t, (ft, wt, pt) in branches.items():
-        sel = lobe_type == t
-        f = torch.where(sel, ft, f)
-        pdf = torch.where(sel, pt, pdf)
-        wo = torch.where(sel[..., None], wt, wo)
-    return f, wo, pdf
+def sample_lobe_sorted(lobe_type, params, n, wi, u2, present):
+    """sample_lobe by type-sorted segments; the same (f, wo, pdf)."""
+    present = present or ALL_TYPES
+    return _sorted_dispatch(SAMPLERS, present, lobe_type,
+                            dict(params=params, n=n, wi=wi, u2=u2), ((), (3,), ()))

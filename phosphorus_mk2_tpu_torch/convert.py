@@ -1,10 +1,12 @@
-"""Carry a scene across from its numpy form.
+"""Carry a scene, and an optimizer's state, across from numpy form.
 
 ``scene_data_from_numpy`` turns the leaves of a ``SceneData`` as numpy
 arrays (for example those of the JAX package's ``Scene.build()``,
 converted with ``numpy.asarray``) plus its static fields into this
 package's ``SceneData`` on ``device``, so the two packages can be fed
-the same scene.
+the same scene. ``adam_state_to_npz`` and ``adam_state_from_npz`` map
+Adam's state to and from the JAX package's optimizer checkpoint, so an
+inverse-rendering run resumes in either package.
 """
 from __future__ import annotations
 
@@ -46,3 +48,46 @@ def scene_data_from_numpy(arrays: dict, static: dict, device="cuda") -> SceneDat
         tensors["bvh"] = {k: on_dev(v) for k, v in bvh.items()}
     fixed = {k: tuple(v) if k == "lobe_types_present" else v for k, v in static.items()}
     return SceneData(**tensors, **fixed)
+
+
+def adam_state_to_npz(*, step: int, key, params: dict, count: int, exp_avg: dict,
+                      exp_avg_sq: dict) -> dict:
+    """The arrays of the JAX package's optimizer checkpoint
+    (``InverseRenderer.save_checkpoint``) from Adam's state: ``step``,
+    ``key`` (two uint32 words), ``param_<name>``, and ``opt_<i>`` in
+    optax.adam's leaf order: the int32 count, then mu (torch's exp_avg),
+    then nu (exp_avg_sq), each over the sorted parameter names."""
+    names = sorted(params)
+    leaves = ([np.asarray(count, np.int32)]
+              + [np.asarray(exp_avg[k], np.float32) for k in names]
+              + [np.asarray(exp_avg_sq[k], np.float32) for k in names])
+    return {
+        "step": np.asarray(step),
+        "key": np.asarray(key, np.uint32),
+        **{f"param_{k}": np.asarray(params[k]) for k in names},
+        **{f"opt_{i}": leaf for i, leaf in enumerate(leaves)},
+    }
+
+
+def adam_state_from_npz(ck, names) -> dict:
+    """Adam's state from an optimizer checkpoint of either package (see
+    ``adam_state_to_npz``): {"step", "key", "params", "count", "exp_avg",
+    "exp_avg_sq"}, arrays as numpy. names: the trainable fields; a file
+    whose parameters or leaf count differ raises ValueError."""
+    names = sorted(names)
+    stored = sorted(k[len("param_"):] for k in ck.files if k.startswith("param_"))
+    n_opt = sum(k.startswith("opt_") for k in ck.files)
+    if stored != names or n_opt != 1 + 2 * len(names):
+        raise ValueError(
+            f"checkpoint holds parameters {stored} and {n_opt} optimizer leaves; "
+            f"Adam over {names} needs {1 + 2 * len(names)}"
+        )
+    m = len(names)
+    return {
+        "step": int(ck["step"]),
+        "key": np.asarray(ck["key"], np.uint32),
+        "params": {k: np.asarray(ck[f"param_{k}"]) for k in names},
+        "count": int(ck["opt_0"]),
+        "exp_avg": {k: np.asarray(ck[f"opt_{1 + i}"]) for i, k in enumerate(names)},
+        "exp_avg_sq": {k: np.asarray(ck[f"opt_{1 + m + i}"]) for i, k in enumerate(names)},
+    }

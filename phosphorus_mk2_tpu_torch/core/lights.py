@@ -13,6 +13,7 @@ import torch
 
 from phosphorus_mk2_tpu_torch.core.scene import LIGHT_AREA
 from phosphorus_mk2_tpu_torch.core.shading import shading_parameters
+from phosphorus_mk2_tpu_torch.math.vec import maximum
 from phosphorus_mk2_tpu_torch.math.sampling import (
     remap_index_sample,
     triangle_sample,
@@ -82,7 +83,7 @@ def sample_lights(scene, u_pick, u_tri, u_uv, meta, lt_table, attr_w: int) -> di
     p_area = bu[..., None] * a + bv[..., None] * b + (1.0 - bu - bv)[..., None] * c
     n_area = sp["n"]
     # guard 1e-12, as in the JAX package (representable when squared)
-    pdf_area = 1.0 / torch.clamp(larea, min=1e-12)
+    pdf_area = 1.0 / maximum(larea, 1e-12)
 
     hemi, pdf_inf = uniform_hemisphere(torch.stack([u_tri, u_uv], dim=-1))
     p_inf = hemi * 1000.0

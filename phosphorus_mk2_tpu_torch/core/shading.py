@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from phosphorus_mk2_tpu_torch.core.texture import sample_texture
-from phosphorus_mk2_tpu_torch.math.vec import cross, normalize, safe_sqrt
+from phosphorus_mk2_tpu_torch.math.vec import cross, maximum, normalize, safe_sqrt
 
 
 def triangle_attribute_table(scene) -> torch.Tensor:
@@ -73,7 +73,7 @@ def shading_parameters(scene, tri, u, v, attr=None, row=None) -> dict:
     e0t = uv1 - uv0
     e1t = uv2 - uv0
     area_t = (e0t[..., 0] * e1t[..., 1] - e0t[..., 1] * e1t[..., 0]).abs()
-    uv_scale = safe_sqrt(area_t / torch.clamp(area_w, min=1e-20))
+    uv_scale = safe_sqrt(area_t / maximum(area_w, 1e-20))
 
     out = {"p": p, "n": n, "ng": n_geom, "st": st, "uv_scale": uv_scale,
            "edges": (e0w, e1w, e0t, e1t)}

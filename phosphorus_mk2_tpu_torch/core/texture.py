@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from phosphorus_mk2_tpu_torch.math.rng import _mul32
+from phosphorus_mk2_tpu_torch.math.vec import clip, maximum
 
 PROC_IMAGE = 0
 PROC_RANDOM = 1    # value noise (reference random_noise_*_node.osl)
@@ -234,8 +235,8 @@ def _lod_levels(rows, footprint, n_levels: int):
     """Mip level pair (l0, l1) int64 and blend (N, 1) for a uv-space
     footprint: the texel pitch at level l is 2^l / base size."""
     base = torch.maximum(rows[:, 0, 2], rows[:, 0, 3]).to(torch.float32)
-    lod = torch.log2(torch.clamp(footprint, min=1e-20) * base)
-    lod = torch.clamp(lod, 0.0, n_levels - 1.0)
+    lod = torch.log2(maximum(footprint, 1e-20) * base)
+    lod = clip(lod, 0.0, n_levels - 1.0)
     l0 = torch.floor(lod).to(torch.int64)
     l1 = torch.clamp(l0 + 1, max=n_levels - 1)
     tl = (lod - l0.to(torch.float32))[..., None]
@@ -252,7 +253,7 @@ def _sample_aniso(flat, rows, aw: int, n_levels: int, uv, fp: dict):
     taps = int(fp.get("taps", 4))
     # gap-free line sampling: each tap's filter covers major / taps of
     # the line, so the lod axis is max(minor, major / taps)
-    major_len = torch.sqrt(torch.clamp((major * major).sum(-1), min=1e-20))
+    major_len = torch.sqrt(maximum((major * major).sum(-1), 1e-20))
     minor = torch.maximum(fp["minor"], major_len / taps)
 
     l0, l1, tl = _lod_levels(rows, minor, n_levels)
@@ -319,7 +320,7 @@ def sample_texture(atlas, info, tex_id, uv, footprint=None):
 def direction_to_latlong_uv(d):
     """Equirectangular mapping for environment lookups (y-up)."""
     phi = torch.atan2(d[..., 2], d[..., 0])  # [-pi, pi]
-    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))  # [0, pi]
+    theta = torch.arccos(clip(d[..., 1], -1.0, 1.0))  # [0, pi]
     u = (phi / (2.0 * math.pi)) + 0.5
     v = 1.0 - theta / math.pi
     return torch.stack([u, v], dim=-1)

@@ -1,8 +1,8 @@
 """Wavefront unidirectional path integrator with NEE and Russian roulette.
 
 Counterpart of ``phosphorus_mk2_tpu/integrator/path.py`` (reference
-src/kernels/cpu/spt.hpp: trace -> shade -> shadow trace -> integrate),
-forward only. The bounce loop is a Python loop over ``max_depth`` on
+src/kernels/cpu/spt.hpp: trace -> shade -> shadow trace -> integrate).
+The bounce loop is a Python loop over ``max_depth`` on
 dense (N, ...) path state with per-ray alive masks, exactly the JAX
 package's scan; every random number is counter-based (math/rng.py), so
 the same seed gives the JAX package's samples.
@@ -18,10 +18,22 @@ mis=True is the JAX package's balance-heuristic deviation):
     and survivor reweighting (spt.hpp:307-328);
   * throughput update beta *= f * |n.wo| / pdf (spt.hpp:291-299).
 
-The trace is primal: everything runs under ``torch.no_grad()``.
+Differentiability, as in the JAX package: radiance is differentiable
+with respect to the scene's vertices, normals, lobe weights and
+parameters and emission. The trace is primal: every tracer call runs
+under ``torch.no_grad()`` on detached rays, so no hand kernel sees a
+tensor that requires grad, and gradients flow through the
+re-intersection (accel/intersect.reintersect) and the gathered hit,
+attribute and light rows. Discrete events (hit ids, visibility, lobe
+choice, Russian roulette) carry no gradient: these are interior
+gradients, without visibility-edge terms. ``trainable`` scopes the
+backward to a set of fields (``scope_scene``, ``gather_hit_rows``).
+Forward renders (``render_aovs``, ``Renderer``) run under
+``torch.no_grad()`` and build no graph.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -65,6 +77,7 @@ from phosphorus_mk2_tpu_torch.math.vec import (
     dot,
     is_black,
     luminance,
+    maximum,
     normalize,
     offset,
 )
@@ -74,7 +87,8 @@ BRUTE_MAX_TRIS = 1024
 
 
 def make_tracer(scene, use_bvh: bool = True, use_pallas: bool = False,
-                kind: str = "auto", tracer_tune: dict | None = None):
+                kind: str = "auto", tracer_tune: dict | None = None,
+                plain: bool = False):
     """Pick the traversal backend: a pair (closest, occluded) with
 
       closest(p, d, tmax=None) -> {"t", "tri", "u", "v", "hit"}
@@ -94,6 +108,10 @@ def make_tracer(scene, use_bvh: bool = True, use_pallas: bool = False,
     short tmax and need no front-to-back completeness, so for example a
     shallower front_k can serve them (the exact fallback covers overflow
     either way; only the schedule changes).
+
+    plain=True takes the kernels' plain versions on any device (for the
+    cluster tracer, the same as tracer_tune={"plain": True}), so that a
+    whole render can be held against the kernels on the card.
     """
     has_bvh = use_bvh and scene.bvh is not None
     if kind == "auto":
@@ -107,6 +125,8 @@ def make_tracer(scene, use_bvh: bool = True, use_pallas: bool = False,
         if not has_bvh:
             raise ValueError(f"tracer kind {kind!r} requires an attached BVH")
         tune = dict(tracer_tune or {})
+        if plain:
+            tune["plain"] = True
         shadow = {**tune, **(tune.pop("shadow", None) or {})}
         shadow.pop("shadow", None)
         return (
@@ -115,7 +135,62 @@ def make_tracer(scene, use_bvh: bool = True, use_pallas: bool = False,
         )
     if kind != "brute":
         raise ValueError(f"unknown tracer kind {kind!r}")
-    return mt.brute_tracer(mt.tri_table(scene))
+    return BruteTracer(scene, plain)
+
+
+class BruteTracer(tuple):
+    """The brute tracer pair (accel/mt.brute_tracer) over the triangle
+    table of a scene's detached vertices. ``render_pass_pixels``, and a
+    direct ``trace_sample`` call, remake it from the scene they render
+    (``tracer_for``), so that a render traces the geometry it is given,
+    as the JAX package's tracers, which take the scene at every call, do.
+    plain=True takes the kernels' plain versions on any device."""
+
+    def __new__(cls, scene, plain: bool = False):
+        with torch.no_grad():
+            table = mt.tri_table(scene)
+        self = super().__new__(cls, mt.brute_tracer(table, plain=plain))
+        self.plain = plain
+        return self
+
+
+def tracer_for(tracer, scene):
+    """The tracer pair that traces ``scene``: a BruteTracer remade from
+    it (one table build), any other pair as given (the cluster tracer
+    keeps the BVH it was made with, which goes stale when vertices move,
+    as the JAX package's does)."""
+    return BruteTracer(scene, tracer.plain) if isinstance(tracer, BruteTracer) else tracer
+
+
+# SceneData fields a caller may declare trainable (the gradient-scoping
+# contract shared with optim.InverseRenderer)
+SCOPABLE_FIELDS = ("vertices", "normals", "emission", "lobe_weight", "lobe_param")
+
+
+def scope_scene(scene, trainable):
+    """Detach every scopable field not in ``trainable``.
+
+    The gradients of the trainable fields are the same with or without
+    this (a detach elsewhere changes no partial derivative with respect
+    to them); the backward graph only shrinks to the chains that start
+    at the trainable set. trainable=None returns the scene unchanged.
+    An unknown field name raises ValueError: it would otherwise detach
+    every real field and give exactly-zero gradients.
+    """
+    if trainable is None:
+        return scene
+    t = frozenset(trainable)
+    unknown = t - frozenset(SCOPABLE_FIELDS)
+    if unknown:
+        raise ValueError(
+            f"unknown trainable field(s) {sorted(unknown)}; scopable: {SCOPABLE_FIELDS}"
+        )
+    cut = {
+        f: getattr(scene, f).detach()
+        for f in SCOPABLE_FIELDS
+        if f not in t and getattr(scene, f, None) is not None
+    }
+    return dataclasses.replace(scene, **cut) if cut else scene
 
 
 def make_scene_tables(scene) -> dict:
@@ -171,20 +246,20 @@ def _footprint(plen, t_hit, sp, d, spread, aniso_taps: int = 0):
     w_c = dist * spread  # world-space cone diameter at the hit
     uv_scale = sp["uv_scale"].detach()
     if not aniso_taps:
-        graze = 1.0 / torch.sqrt(torch.clamp(cos_i, min=1e-2))
+        graze = 1.0 / torch.sqrt(maximum(cos_i, 1e-2))
         return (w_c * graze) * uv_scale
 
     ng = sp["ng"].detach()
     e0w, e1w, e0t, e1t = (e.detach() for e in sp["edges"])
     # in-plane major-axis direction: the projected view direction
     t_w = d - ng * (ng * d).sum(dim=-1, keepdim=True)
-    t_len = torch.sqrt(torch.clamp((t_w * t_w).sum(-1), min=1e-20))
+    t_len = torch.sqrt(maximum((t_w * t_w).sum(-1), 1e-20))
     # near normal incidence the projection vanishes and the ellipse is a
     # circle: any in-plane direction works; fall back to edge 0
     degenerate = t_len < 1e-6
     t_hat = torch.where(
         degenerate[:, None],
-        e0w / torch.sqrt(torch.clamp((e0w * e0w).sum(-1, keepdim=True), min=1e-20)),
+        e0w / torch.sqrt(maximum((e0w * e0w).sum(-1, keepdim=True), 1e-20)),
         t_w / t_len[:, None],
     )
     # world -> uv by least squares over the triangle edges: solve
@@ -192,13 +267,13 @@ def _footprint(plen, t_hit, sp, d, spread, aniso_taps: int = 0):
     g00 = (e0w * e0w).sum(-1)
     g01 = (e0w * e1w).sum(-1)
     g11 = (e1w * e1w).sum(-1)
-    det = torch.clamp(g00 * g11 - g01 * g01, min=1e-12)
+    det = maximum(g00 * g11 - g01 * g01, 1e-12)
     r0 = (e0w * t_hat).sum(-1)
     r1 = (e1w * t_hat).sum(-1)
     a = (g11 * r0 - g01 * r1) / det
     b = (g00 * r1 - g01 * r0) / det
     uv_dir = a[:, None] * e0t + b[:, None] * e1t  # uv image of t_hat
-    major_world = w_c / torch.clamp(cos_i, min=1.0 / MAX_ANISO)
+    major_world = w_c / maximum(cos_i, 1.0 / MAX_ANISO)
     return {
         "minor": w_c * uv_scale,
         "major_uv": uv_dir * major_world[:, None],
@@ -217,7 +292,6 @@ def cone_spread(scene, cam_params):
     return 1.12 * torch.tan(cam_params["fov"] * 0.5) / cam_params["height"]
 
 
-@torch.no_grad()
 def trace_sample(
     scene,
     cam_params,
@@ -232,6 +306,8 @@ def trace_sample(
     mis: bool = False,
     tables: dict | None = None,
     aniso_taps: int = 0,
+    sorted_dispatch: bool = True,
+    trainable: tuple | None = None,
 ):
     """Trace one sample per pixel for a wavefront. Returns (radiance (N,3),
     first-hit normal (N,3), first-hit alpha (N,)).
@@ -247,12 +323,21 @@ def trace_sample(
     reference: emission is kept at every vertex with balance weights and
     the (e*4) NEE factor is dropped, so both strategies estimate the same
     integral. mis=False is the reference's own integrator.
+
+    sorted_dispatch: lobes by type-sorted segments where the JAX
+    package's gate takes them (bsdf/bsdf.py); the same values as the
+    dense dispatch. trainable: the SCOPABLE_FIELDS the caller will
+    differentiate with respect to; gradient flow from every other field
+    is cut (scope_scene and the column-scoped hit-row gather), and the
+    gradients of the listed fields are those of trainable=None.
     """
     n = pixel_x.shape[0]
     dev = pixel_x.device
-    closest, occluded = tracer
-    if tables is None:
+    if tables is None:  # a direct call: render_pass_pixels does this once a pass
+        scene = scope_scene(scene, trainable)
         tables = make_scene_tables(scene)
+        tracer = tracer_for(tracer, scene)
+    closest, occluded = tracer
     attr = tables["attr"]
     hit_f = tables["hit_f"]
     hit_layout = tables["hit_layout"]
@@ -288,8 +373,9 @@ def trace_sample(
     plen = None if spread is None else torch.zeros((n,), dtype=torch.float32, device=dev)
 
     for b in range(max_depth):
-        # dead lanes trace with tmax ~ 0
-        hits = closest(p, d, torch.where(alive, T_MAX, 1e-6))
+        # the primal trace; dead lanes trace with tmax ~ 0
+        with torch.no_grad():
+            hits = closest(p.detach(), d.detach(), torch.where(alive, T_MAX, 1e-6))
         tri = hits["tri"]
         hit = hits["hit"] & alive
         safe_tri = torch.clamp(tri, min=0).long()
@@ -297,7 +383,7 @@ def trace_sample(
         # consolidated hit side: ONE row gather feeds the re-intersection,
         # shading attributes, material lobes, emission, texture ids and
         # the NEE pdf
-        hrow = gather_hit_rows(hit_f, safe_tri)
+        hrow = gather_hit_rows(hit_f, safe_tri, hit_layout, trainable)
         mat_raw, e_row, lobes, nee_pdf_row, texids = unpack_hit_rows(scene, hrow, hit_layout)
         t_hit, u, v = reintersect(scene, tri, p, d, row=hrow)
         u = torch.where(hit, u, 0.0)
@@ -326,8 +412,8 @@ def trace_sample(
             # interpolated normal's cosine as sample_lights has it
             dist = t_hit.detach()
             cos_h = dot(n_interp, d).abs()
-            pdf_nee_sa = nee_pdf_row * dist * dist / torch.clamp(cos_h, min=1e-12)
-            w_b = (pdf_prev / torch.clamp(pdf_prev + pdf_nee_sa, min=1e-20)).detach()
+            pdf_nee_sa = nee_pdf_row * dist * dist / maximum(cos_h, 1e-12)
+            w_b = (pdf_prev / maximum(pdf_prev + pdf_nee_sa, 1e-20)).detach()
             mis_mask = hit & ~emit_mask
             radiance = radiance + torch.where(
                 mis_mask[..., None], beta * e_hit * w_b[..., None], 0.0
@@ -344,6 +430,7 @@ def trace_sample(
         if spread is not None:
             plen = plen + torch.where(hit, t_hit.detach(), 0.0)
 
+        lobes["sorted_ok"] = sorted_dispatch
         lobes = apply_fresnel(scene, lobes, hn, wo_view)
 
         # per-bounce randomness: light pick / light tri / light uv / RR
@@ -360,32 +447,34 @@ def trace_sample(
             )
             p_off = offset(hp, hn)
             wi_vec = ls["p"] - p_off
-            dist = torch.sqrt(torch.clamp(dot(wi_vec, wi_vec), min=1e-20))
+            dist = torch.sqrt(maximum(dot(wi_vec, wi_vec), 1e-20))
             wi = wi_vec / dist[..., None]
             dist = dist - RAY_EPSILON
 
             valid = hit & (dot(hn, wi) > 0.0) & ls["valid"]
-            occ = occluded(p_off, wi, torch.where(valid, dist, 0.0))
+            with torch.no_grad():
+                occ = occluded(p_off.detach(), wi.detach(),
+                               torch.where(valid, dist, 0.0).detach())
 
             f = bsdf_f(lobes, hn, wi, wo_view)
             light_e = emission_from_row(scene, ls["e"], ls["etex"], ls["st"])
             cos_l = dot(ls["n"], -wi).abs()
             # division guards at 1e-12, as in the JAX package
-            pdf_l = ls["pdf"] * dist * dist / torch.clamp(cos_l, min=1e-12)
+            pdf_l = ls["pdf"] * dist * dist / maximum(cos_l, 1e-12)
             if mis:
                 # balance weight against BSDF sampling of the same direction
                 pdf_b = bsdf_pdf(lobes, hn, wi, wo_view)
-                w_nee = (pdf_l / torch.clamp(pdf_l + pdf_b, min=1e-20)).detach()
-                li = light_e * f * (w_nee / torch.clamp(pdf_l, min=1e-12))[..., None]
+                w_nee = (pdf_l / maximum(pdf_l + pdf_b, 1e-20)).detach()
+                li = light_e * f * (w_nee / maximum(pdf_l, 1e-12))[..., None]
             else:
-                li = (light_e * 4.0) * f / torch.clamp(pdf_l, min=1e-12)[..., None]
+                li = (light_e * 4.0) * f / maximum(pdf_l, 1e-12)[..., None]
             use = valid & ~occ
             radiance = radiance + torch.where(use[..., None], beta * li, 0.0)
 
         # 3. Russian roulette + termination (reference terminate_path)
         depth_after = b + 1
         alive_next = hit & (depth_after < max_depth)
-        q = torch.clamp(1.0 - luminance(beta), min=0.05)
+        q = maximum(1.0 - luminance(beta.detach()), 0.05)
         if depth_after >= 3:
             survive = u_light[:, 3] >= q
             rr_on = alive_next
@@ -414,15 +503,19 @@ def trace_sample(
     return radiance, aov_normal, aov_alpha
 
 
-@torch.no_grad()
 def render_pass_pixels(scene, cam_params, seed: int, sample_offset: int,
                        n_samples: int, px, py, *, max_depth: int, tracer,
-                       film_strata: int = 1, mis: bool = False, aniso_taps: int = 0):
+                       film_strata: int = 1, mis: bool = False, aniso_taps: int = 0,
+                       sorted_dispatch: bool = True, trainable: tuple | None = None):
     """Accumulate ``n_samples`` samples for a pixel wavefront px, py (N,).
-    Returns dict of per-pixel sums (not yet divided by spp)."""
+    Returns dict of per-pixel sums (not yet divided by spp),
+    differentiable with respect to the scene's fields (see trace_sample
+    for sorted_dispatch and trainable)."""
     n = px.shape[0]
     dev = px.device
+    scene = scope_scene(scene, trainable)  # cut non-trainable gradients
     tables = make_scene_tables(scene)  # once per pass, shared by samples
+    tracer = tracer_for(tracer, scene)
     c = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     nrm = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     a = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -431,6 +524,7 @@ def render_pass_pixels(scene, cam_params, seed: int, sample_offset: int,
             scene, cam_params, px, py, sample_offset + s, seed,
             max_depth=max_depth, tracer=tracer, film_strata=film_strata,
             mis=mis, tables=tables, aniso_taps=aniso_taps,
+            sorted_dispatch=sorted_dispatch, trainable=trainable,
         )
         c = c + r
         nrm = nrm + sn
@@ -444,16 +538,16 @@ def frame_pixels(width: int, height: int, device):
     return ids % width, ids // width
 
 
-@torch.no_grad()
 def render_pass(scene, cam_params, seed: int, sample_offset: int, n_samples: int,
                 *, width: int, height: int, max_depth: int, tracer,
-                film_strata: int = 1, mis: bool = False, aniso_taps: int = 0):
+                film_strata: int = 1, mis: bool = False, aniso_taps: int = 0,
+                sorted_dispatch: bool = True, trainable: tuple | None = None):
     """Accumulate ``n_samples`` samples for the full frame."""
     px, py = frame_pixels(width, height, scene.device)
     return render_pass_pixels(
         scene, cam_params, seed, sample_offset, n_samples, px, py,
         max_depth=max_depth, tracer=tracer, film_strata=film_strata, mis=mis,
-        aniso_taps=aniso_taps,
+        aniso_taps=aniso_taps, sorted_dispatch=sorted_dispatch, trainable=trainable,
     )
 
 
@@ -461,7 +555,8 @@ def render_pass(scene, cam_params, seed: int, sample_offset: int, n_samples: int
 def render_aovs(scene, camera, *, spp: int | None = None,
                 max_depth: int | None = None, options=None, seed=None):
     """Full render returning color + AOVs as (H, W, C) tensors on the
-    scene's device. Loops over passes of options.samples_per_pass."""
+    scene's device. Loops over passes of options.samples_per_pass. A
+    forward render: no graph is built."""
     options = options or Options()
     spp = spp if spp is not None else options.samples_per_pixel
     max_depth = max_depth if max_depth is not None else options.path_depth

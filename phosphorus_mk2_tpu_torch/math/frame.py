@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from phosphorus_mk2_tpu_torch.math.vec import cross, dot, normalize, safe_sqrt
+from phosphorus_mk2_tpu_torch.math.vec import clip, cross, dot, maximum, normalize, safe_sqrt
 
 
 def make_frame(n: torch.Tensor):
@@ -48,7 +48,7 @@ def cos2_theta(v: torch.Tensor) -> torch.Tensor:
 
 
 def sin2_theta(v: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(1.0 - cos2_theta(v), min=0.0)
+    return maximum(1.0 - cos2_theta(v), 0.0)
 
 
 def sin_theta(v: torch.Tensor) -> torch.Tensor:
@@ -68,7 +68,7 @@ def cos_phi(v: torch.Tensor) -> torch.Tensor:
     s = sin_theta(v)
     zero = s == 0.0
     return torch.where(
-        zero, 1.0, torch.clamp(v[..., 0] / torch.where(zero, 1.0, s), -1.0, 1.0)
+        zero, 1.0, clip(v[..., 0] / torch.where(zero, 1.0, s), -1.0, 1.0)
     )
 
 
@@ -76,7 +76,7 @@ def sin_phi(v: torch.Tensor) -> torch.Tensor:
     s = sin_theta(v)
     zero = s == 0.0
     return torch.where(
-        zero, 0.0, torch.clamp(v[..., 2] / torch.where(zero, 1.0, s), -1.0, 1.0)
+        zero, 0.0, clip(v[..., 2] / torch.where(zero, 1.0, s), -1.0, 1.0)
     )
 
 

@@ -14,6 +14,7 @@ sum and shift is masked with ``& 0xFFFFFFFF``. Products are split into
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -81,3 +82,57 @@ def pixel_uniforms4(seed: int, pix: torch.Tensor, sample, bounce, purpose: int):
     return torch.stack(
         [_to_float(x), _to_float(y), _to_float(z), _to_float(w)], dim=-1
     )
+
+
+# ---------------------------------------------------------------------------
+# Threefry-2x32 keys, on the host: ``jax.random.key`` and
+# ``jax.random.split`` of the JAX package's default key type, so that a
+# chain of split keys, and the render seed each key gives
+# (``key_data[-1]``), is the JAX package's.
+# ---------------------------------------------------------------------------
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def threefry2x32(key, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) of the counter words x0, x1
+    (uint32 arrays) under the key's two words; returns two uint32 arrays.
+    The round schedule of jax's ``_threefry2x32_lowering``."""
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x[0] = x[0] + x[1]
+                x[1] = _rotl(x[1], r) ^ x[0]
+            x[0] = x[0] + ks[(i + 1) % 3]
+            x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x[0], x[1]
+
+
+def key_data(seed: int) -> np.ndarray:
+    """The two uint32 words of ``jax.random.key(seed)`` with jax's
+    default 32-bit integers: 0, then the seed's word (``seed_word``)."""
+    return np.array([0, seed_word(seed)], np.uint32)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` for a threefry key with
+    ``jax_threefry_partitionable`` on (jax's default since 0.5): key i
+    is the hash of the 64-bit counter i, high word 0. Returns (num, 2)
+    uint32 key words."""
+    with np.errstate(over="ignore"):
+        b0, b1 = threefry2x32(np.asarray(key, np.uint32),
+                              np.zeros(num, np.uint32), np.arange(num, dtype=np.uint32))
+    return np.stack([b0, b1], axis=1)
+
+
+def key_seed(key) -> int:
+    """The render seed a key gives: its last word (the JAX package's
+    ``key_data(key)[-1]``)."""
+    return int(np.asarray(key, np.uint32)[-1])

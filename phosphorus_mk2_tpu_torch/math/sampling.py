@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from phosphorus_mk2_tpu_torch.math.vec import maximum, minimum
+
 UNIFORM_DISC_PDF = 1.0 / math.pi
 ONE_MINUS_EPS = 1.0 - 2.0 ** -23  # float32(1) - finfo(float32).eps
 
@@ -20,7 +22,7 @@ ONE_MINUS_EPS = 1.0 - 2.0 ** -23  # float32(1) - finfo(float32).eps
 def uniform_hemisphere(u: torch.Tensor):
     """y-up uniform hemisphere warp; pdf replicates the reference's 1/pi."""
     u1, u2 = u[..., 0], u[..., 1]
-    r = torch.sqrt(torch.clamp(1.0 - u1 * u1, min=0.0))
+    r = torch.sqrt(maximum(1.0 - u1 * u1, 0.0))
     phi = 2.0 * math.pi * u2
     out = torch.stack([torch.cos(phi) * r, u1, torch.sin(phi) * r], dim=-1)
     pdf = torch.full_like(u1, UNIFORM_DISC_PDF)
@@ -34,7 +36,7 @@ def cosine_hemisphere(u: torch.Tensor):
     theta = 2.0 * math.pi * u2
     x = r * torch.cos(theta)
     z = r * torch.sin(theta)
-    y = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+    y = torch.sqrt(maximum(1.0 - u1, 0.0))
     return torch.stack([x, y, z], dim=-1), y * UNIFORM_DISC_PDF
 
 
@@ -69,5 +71,5 @@ def remap_index_sample(u: torch.Tensor, count):
     else:
         count_f = torch.tensor(float(count), dtype=u.dtype, device=u.device)
     idx = torch.minimum(torch.floor(u * count_f), count_f - 1.0)
-    remapped = torch.clamp(u * count_f - idx, max=ONE_MINUS_EPS)
+    remapped = minimum(u * count_f - idx, ONE_MINUS_EPS)
     return idx.to(torch.int64), remapped

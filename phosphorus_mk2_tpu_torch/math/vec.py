@@ -5,11 +5,36 @@ broadcast over leading batch dimensions.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # Ray-origin epsilon push, matching the reference's offset()
 # (reference src/math/vector.hpp:14-21).
 RAY_EPSILON = 1e-4
+
+
+@functools.lru_cache(maxsize=None)
+def _const(c: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(c, dtype=torch.float32, device=device)
+
+
+def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """max(x, c) for a constant c, with the JAX package's gradient: at a
+    tie x == c, half of it reaches x (``jnp.maximum``). ``torch.clamp``
+    passes all of it; the values are the same."""
+    return torch.maximum(x, _const(float(c), x.device))
+
+
+def minimum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """min(x, c) with ``jnp.minimum``'s gradient at a tie (see maximum)."""
+    return torch.minimum(x, _const(float(c), x.device))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: minimum(maximum(x, lo), hi), half the gradient at
+    either bound."""
+    return minimum(maximum(x, lo), hi)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -29,7 +54,7 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalize: a / |a| with a guard against |a| = 0."""
-    return a * torch.rsqrt(torch.clamp(dot_keep(a, a), min=eps))
+    return a * torch.rsqrt(maximum(dot_keep(a, a), eps))
 
 
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:

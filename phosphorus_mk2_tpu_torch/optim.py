@@ -1,0 +1,255 @@
+"""Inverse rendering: recover scene parameters from target images.
+
+Counterpart of ``phosphorus_mk2_tpu/optim.py`` (BASELINE.json config 5:
+recover BSDF albedo and light emission through pixel-loss gradients; the
+reference renderer is forward-only). The trainable fields become leaf
+tensors, are put into the scene for each step with
+``dataclasses.replace``, and a ``torch.optim`` optimizer (Adam by
+default, the numbers of ``optax.adam``) takes the step. Keys are the
+JAX package's threefry keys (math/rng.py), so a run takes the samples
+the JAX package's run takes. One device: ``n_devices`` other than None
+or 1 raises until the multi-GPU slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
+from phosphorus_mk2_tpu_torch.convert import adam_state_from_npz, adam_state_to_npz
+from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+from phosphorus_mk2_tpu_torch.core.options import Options
+from phosphorus_mk2_tpu_torch.device import resolve_device
+from phosphorus_mk2_tpu_torch.integrator.path import (
+    BRUTE_MAX_TRIS,
+    frame_pixels,
+    make_tracer,
+    render_aovs,
+    render_pass_pixels,
+)
+from phosphorus_mk2_tpu_torch.math import rng
+from phosphorus_mk2_tpu_torch.math.vec import maximum
+
+TRAINABLE_FIELDS = ("emission", "lobe_weight", "lobe_param", "vertices", "normals")
+
+
+class InverseRenderer:
+    """Gradient-descent loop recovering scene parameters.
+
+    target: (H, W, 3) image. trainable: subset of TRAINABLE_FIELDS.
+    spp: samples per gradient step (fresh RNG per step: a stochastic
+    gradient over the path integral).
+    """
+
+    def __init__(
+        self,
+        scene,
+        target,
+        trainable=("emission", "lobe_weight"),
+        *,
+        learning_rate: float = 5e-2,
+        spp: int = 4,
+        max_depth: int = 3,
+        use_bvh: bool = True,
+        n_devices=None,
+        seed: int = 0,
+        optimizer=None,
+        fresh_rng: bool = True,
+        log_emission: bool = False,
+        unbiased_loss: bool = False,
+        views=None,
+        sorted_dispatch: bool = False,
+        device="cuda",
+    ):
+        """fresh_rng: new sample paths each step (unbiased stochastic
+        gradients); False reuses one path set, which converges to that
+        set's noise floor deterministically (useful for tests).
+        log_emission: optimize emission in log space (emission =
+        exp(theta)), so that Adam's steps are relative.
+        unbiased_loss: the double-sample loss, the per-pixel product of
+        the residuals of two independent renders of spp/2 each: a single
+        render's MSE holds the estimator's variance, which depends on
+        the parameters (dimmer lights render with less noise), and
+        drives the optimum dark; the product's expectation does not.
+        views: optional list of (camera, target image) pairs; step i uses
+        view i % V, and ``target`` is ignored. Every view must have the
+        primary camera's resolution.
+        sorted_dispatch: the type-sorted lobe dispatch in the gradient
+        renders (off by default, as in the JAX package).
+        optimizer: optional callable building a ``torch.optim.Optimizer``
+        from the list of parameter tensors (sorted by field name); the
+        default is ``torch.optim.Adam(lr=learning_rate)``. Checkpoints
+        hold Adam's state.
+        device: "cuda" (the default) or "cpu"."""
+        for f in trainable:
+            if f not in TRAINABLE_FIELDS:
+                raise ValueError(f"not trainable: {f}")
+        if n_devices not in (None, 1):
+            raise NotImplementedError(
+                f"n_devices={n_devices}: the port renders on one device until "
+                "ROADMAP.md Queue 1 slice 8 (multi-GPU)"
+            )
+        self.device = resolve_device(device)
+        self.scene = scene
+        self.trainable = tuple(trainable)
+        self.spp = spp
+        self._max_depth = max_depth
+        self._use_bvh = use_bvh
+        self._sorted = sorted_dispatch
+
+        data = scene.build(self.device)
+        # the BVH only where make_tracer takes the cluster tracer
+        if use_bvh and data.num_tris > BRUTE_MAX_TRIS:
+            data = attach_bvh(data)
+        self.data = data
+        self.tracer = make_tracer(data, use_bvh)
+
+        view_list = list(views) if views else [(scene.camera, target)]
+        self._n_views = len(view_list)
+        w, h = scene.camera.width, scene.camera.height
+        for vc, _ in view_list:
+            if (vc.width, vc.height) != (w, h):
+                raise ValueError(
+                    f"view resolution {vc.width}x{vc.height} != primary {w}x{h}"
+                )
+        self._cams = [camera_to_params(vc, self.device) for vc, _ in view_list]
+        self._targets = [
+            torch.as_tensor(np.asarray(vt, np.float32).reshape(-1, 3), device=self.device)
+            for _, vt in view_list
+        ]
+        self.px, self.py = frame_pixels(w, h, self.device)
+        self._n_pix = float(w * h)
+
+        self._log_emission = bool(log_emission) and "emission" in self.trainable
+        params = {f: getattr(data, f).detach().clone() for f in self.trainable}
+        if self._log_emission:
+            params["emission"] = torch.log(maximum(params["emission"], 1e-6))
+        self.params = {k: params[k].requires_grad_() for k in sorted(params)}
+        if optimizer is None:
+            self.opt = torch.optim.Adam(list(self.params.values()), lr=learning_rate)
+        else:
+            self.opt = optimizer(list(self.params.values()))
+        self.key = rng.key_data(seed)
+        self._step_count = 0
+        self._unbiased = bool(unbiased_loss)
+        self._fresh_rng = fresh_rng
+
+    # --- the step -----------------------------------------------------
+
+    def _fields(self, params):
+        fields = dict(params)
+        if self._log_emission:
+            fields["emission"] = torch.exp(fields["emission"])
+        return fields
+
+    def _render(self, sd, cam, key, n):
+        out = render_pass_pixels(
+            sd, cam, rng.key_seed(key), 0, n, self.px, self.py,
+            max_depth=self._max_depth, tracer=self.tracer,
+            sorted_dispatch=self._sorted,
+            trainable=self.trainable,  # the backward pays for this set only
+        )
+        return out["color"] / n
+
+    def _loss(self, key, view: int):
+        sd = dataclasses.replace(self.data, **self._fields(self.params))
+        cam, tgt = self._cams[view], self._targets[view]
+        if self._unbiased:
+            half = max(1, self.spp // 2)
+            k1, k2 = rng.split(key)
+            e1 = self._render(sd, cam, k1, half) - tgt
+            e2 = self._render(sd, cam, k2, half) - tgt
+            return (e1 * e2).sum() / self._n_pix
+        err = self._render(sd, cam, key, self.spp) - tgt
+        return (err * err).sum() / self._n_pix
+
+    def step(self) -> float:
+        if self._fresh_rng:
+            self.key, sub = rng.split(self.key)
+        else:
+            sub = self.key
+        view = self._step_count % self._n_views
+        self.opt.zero_grad(set_to_none=True)
+        loss = self._loss(sub, view)
+        loss.backward()
+        self.opt.step()
+        self._step_count += 1
+        return float(loss.detach())
+
+    def run(self, n_steps: int, log_every: int = 0) -> list:
+        losses = []
+        for i in range(n_steps):
+            loss = self.step()
+            losses.append(loss)
+            if log_every and (i + 1) % log_every == 0:
+                print(f"step {i + 1}: loss={loss:.6f}")
+        return losses
+
+    def current_scene(self):
+        """The scene with the parameters recovered so far (detached)."""
+        with torch.no_grad():
+            fields = self._fields({k: v.detach() for k, v in self.params.items()})
+        return dataclasses.replace(self.data, **fields)
+
+    def render_current(self, spp: int = 8):
+        """(H, W, 3) numpy render of the scene with the recovered
+        parameters (previews, convergence checks)."""
+        out = render_aovs(
+            self.current_scene(), self.scene.camera, spp=spp, max_depth=self._max_depth,
+            options=Options(use_bvh=self._use_bvh, samples_per_pass=spp),
+        )
+        return out["color"].cpu().numpy()
+
+    # --- checkpoint / resume: the JAX package's optimizer file --------
+
+    def _adam(self):
+        if not isinstance(self.opt, torch.optim.Adam):
+            raise NotImplementedError(
+                "optimizer checkpoints hold Adam's state (the JAX package's "
+                f"optax.adam layout); this run uses {type(self.opt).__name__}"
+            )
+        return self.opt
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write parameters, Adam's state, the step counter and the key
+        as the JAX package's npz (written atomically)."""
+        opt = self._adam()
+        names = list(self.params)
+        states = [opt.state.get(self.params[k], {}) for k in names]
+        count = int(states[0]["step"]) if states and "step" in states[0] else 0
+
+        def host(x, like):
+            return (np.zeros(tuple(like.shape), np.float32) if x is None
+                    else x.detach().cpu().numpy())
+
+        arrays = adam_state_to_npz(
+            step=self._step_count, key=self.key,
+            params={k: self.params[k].detach().cpu().numpy() for k in names},
+            count=count,
+            exp_avg={k: host(s.get("exp_avg"), self.params[k]) for k, s in zip(names, states)},
+            exp_avg_sq={k: host(s.get("exp_avg_sq"), self.params[k])
+                        for k, s in zip(names, states)},
+        )
+        tmp = path + ".tmp.npz"
+        np.savez(tmp[:-4], **arrays)
+        os.replace(tmp, path)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from a checkpoint of ``save_checkpoint`` or of the JAX
+        package's ``InverseRenderer.save_checkpoint`` (the same fields,
+        Adam as optax.adam)."""
+        opt = self._adam()
+        st = adam_state_from_npz(np.load(path), list(self.params))
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(torch.from_numpy(st["params"][k]))
+                opt.state[p] = {
+                    "step": torch.tensor(float(st["count"]), dtype=torch.float32),
+                    "exp_avg": torch.from_numpy(st["exp_avg"][k]).to(p.device),
+                    "exp_avg_sq": torch.from_numpy(st["exp_avg_sq"][k]).to(p.device),
+                }
+        self._step_count = st["step"]
+        self.key = st["key"]

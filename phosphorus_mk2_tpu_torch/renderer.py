@@ -67,9 +67,11 @@ class Renderer:
         # tables and row gathers scale with the wavefront)
         self.max_wavefront = o.max_wavefront or ((1 << 17) if cluster else (1 << 20))
 
+    @torch.no_grad()
     def _pass(self, done: int, todo: int, cancel) -> dict | None:
-        """One accumulation pass over the frame, in pixel chunks. Returns
-        None when cancelled between chunks."""
+        """One accumulation pass over the frame, in pixel chunks (a
+        forward render: no graph). Returns None when cancelled between
+        chunks."""
         n_pix = self.px.shape[0]
         chunk = self.max_wavefront
         pieces = []
