@@ -9,6 +9,9 @@
                                      # and of a gradient step's forward
                                      # and backward)
     python3 chip_smoke.py --upto 3   # stop after phase 3 (no result line)
+    python3 chip_smoke.py --upto 5 --package DIR
+                                     # phases 1-5 of the port in DIR (another
+                                     # checkout): its main path timed
     python3 chip_smoke.py --sweep-timing [--m 24,25] [--package DIR]
                                      # only wave_sweep at phase 7's shapes
                                      # (of the port in DIR: another checkout)
@@ -148,6 +151,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      The launches of the timed calls of (3)-(6) count in the kernels
      line, each counted from 0 just before the call and read just after
      it; warm-ups, references, comparisons and the resume do not.
+  9. scene I/O and the sharded render (io/, parallel/, Renderer and
+     InverseRenderer over a device mesh): (a) the BMW asset
+     (tools/bmw_asset.py of the port, scale 1.0: 14 meshes, 887,604
+     triangles) written by the port's Alembic writer into a temporary
+     directory, imported by its Ogawa reader, built with the native BVH
+     builder and rendered through Renderer(use_bvh=True) at 512x512, 4
+     spp, depth 4 (bench.py's bmw_live shape): the seconds to write, to
+     import and to build the BVH, K and K2, rays/s; the film finite and
+     lit; at 256x256, 1 spp, depth 2 the BVH film equal to the brute
+     kernels' on >= 99.9% of the pixels; (b) examples/cornell.yaml
+     imported and rendered at 64x64 on the card and on the CPU (phase 5's
+     card-against-CPU limits), the film written with io/exr.write_film
+     and read back bit for bit; (c) Renderer(n_devices=1) equal to phase
+     5's cornell_box film bit for bit; a world-size-1 NCCL group
+     (parallel.initialize) rendering and reducing on the card; two gloo
+     ranks on the one card (tools/rank_parity.py; NCCL refuses two ranks
+     on one device) whose all-gathered films of cornell_box 256x256
+     (brute) and terrain_scene 256x256 (use_bvh=True) are bit-equal to
+     one process's, and whose all-reduced gradient of color.sum() with
+     respect to (emission, lobe_weight) is within 1e-4 of each field's
+     max |g| of one process's. A rank that fails or hangs fails the
+     phase. The timed BMW render, the BMW's 256x256 renders, the card's
+     cornell.yaml renders and the n_devices=1 render are counted.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -157,6 +183,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import math
 import os
 import re
@@ -1138,7 +1165,7 @@ def zero_counts(*mods):
 def main_path(mt, front, wave, ct, probe, pt, scenes, dev):
     """Phase 5: the full-size renders through the Renderer entry point,
     then the row-gather probe through its own. Returns the launch counts
-    summed over them."""
+    summed over them and each render's colour film by label."""
     from phosphorus_mk2_tpu_torch.integrator.path import make_scene_tables
 
     brute = dict(samples_per_pixel=16, samples_per_pass=4)
@@ -1256,7 +1283,7 @@ def main_path(mt, front, wave, ct, probe, pt, scenes, dev):
     per_render.append({"render": "row_gather_probe", "launches": dict(wave.LAUNCHES),
                        "variants": probed})
     print(json.dumps({"main_path": per_render}), flush=True)
-    return totals
+    return totals, films
 
 
 def whole_path_vs_plain(mt, pt, scenes, dev):
@@ -2397,6 +2424,254 @@ def gradients_phase(pt, scenes, ct, mt, front, wave, terrain, terrain_data, dev,
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 9: scene I/O and the sharded render
+# ---------------------------------------------------------------------------
+
+BMW_TRIS = 887604          # tools/bmw_asset.py at scale 1.0
+RANK_TIMEOUT = 600         # seconds for each spawned group of ranks
+
+
+class BvhLog(logging.Handler):
+    """Collects attach_bvh's (builder, seconds) log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.builds = []
+
+    def emit(self, record):
+        if record.msg.startswith("BVH:"):
+            self.builds.append((record.args[0], record.args[3]))
+
+
+def bmw_on_card(pt, dev, smi, count):
+    """9a: the BMW asset written by the port's Alembic writer, imported by
+    its reader, and rendered through Renderer(use_bvh=True) at bench.py's
+    512x512 (4 spp, depth 4); then at 256x256, 1 spp, depth 2 the BVH film
+    against the brute kernels' on >= 99.9% of the pixels (phase 5's limit
+    for multi_bsdf_scene). The timed render and both 256x256 renders are
+    counted."""
+    import tempfile
+
+    from phosphorus_mk2_tpu_torch.accel import bvh_builder
+    from phosphorus_mk2_tpu_torch.tools import bmw_asset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bmw.abc")
+        t0 = time.perf_counter()
+        bmw_asset.write_asset(path, scale=1.0)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        scene = bmw_asset.load_scene(path, 512, 512)
+        t_import = time.perf_counter() - t0
+    tris = sum(m.faces.shape[0] for m in scene.meshes)
+    check(tris == BMW_TRIS, f"BMW: {tris} triangles imported, not {BMW_TRIS}")
+    opts = pt.Options(use_bvh=True, samples_per_pixel=4, samples_per_pass=4, path_depth=4)
+    bvh_log = BvhLog()
+    bvh_builder.log.addHandler(bvh_log)
+    bvh_builder.log.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        r = pt.Renderer(scene, opts, device=dev)
+        t_setup = time.perf_counter() - t0
+    finally:
+        bvh_builder.log.removeHandler(bvh_log)
+    check([b for b, _ in bvh_log.builds] == ["native"],
+          f"BMW: the BVH builds were {bvh_log.builds}, not one native build")
+    bvh = r.data.bvh
+    k, k2 = bvh["cluster_bmin"].shape[0], bvh["sc_bmin"].shape[0]
+    r.render()  # warm-up, not timed
+    torch.cuda.synchronize()
+    (film, secs), launches = count(lambda: timed_render(r))
+    c = film["color"]
+    check(np.isfinite(c).all() and c.mean() > 0, "BMW: film not finite or black")
+    check((film["alpha"] > 0).any(), "BMW: nothing hit")
+    rays = 512 * 512 * 4 * 4 * 2
+    for kern in ("front_full", "wave_mt"):
+        check(launches[kern] > 0, f"BMW: {kern} was not launched")
+
+    cam = bmw_asset.make_camera(256, 256)
+    small = {}
+    for bvh_on in (True, False):
+        o = pt.Options(use_bvh=bvh_on, samples_per_pixel=1, samples_per_pass=1, path_depth=2)
+        out, got = count(lambda: pt.render_aovs(r.data, cam, options=o)["color"].cpu().numpy())
+        small[bvh_on] = out
+        for kern, n in got.items():
+            launches[kern] += n
+    for kern in ("mt_closest", "mt_anyhit"):
+        check(launches[kern] > 0, f"BMW: {kern} was not launched by the brute render")
+    a, b = small[True], small[False]
+    close = float(np.isclose(a, b, rtol=1e-5, atol=1e-7).all(axis=-1).mean())
+    check(close >= 0.999, f"BMW: only {close} of the BVH film's pixels match the brute film")
+    print(f"BMW asset {tris} triangles, {len(scene.meshes)} meshes, {size} bytes; K {k} clusters, "
+          f"K2 {k2} superclusters; write {t_write:.3f} s, import {t_import:.3f} s, BVH "
+          f"(native) {bvh_log.builds[0][1]:.3f} s, Renderer set-up {t_setup:.3f} s; 512x512 4 spp "
+          f"depth 4 use_bvh=True: {secs:.6f} s, {rays / secs:.1f} rays/s "
+          f"({rays / secs / 1e6:.4f} Mrays/s), film mean {c.mean():.6f}; 256x256 1 spp depth 2 "
+          f"BVH vs brute: pixels within rtol 1e-5 {close:.6f}, max |diff| "
+          f"{np.abs(a - b).max():.3g}; launches {launches}; {smi}", flush=True)
+    return {"triangles": tris, "meshes": len(scene.meshes), "bytes": size, "clusters": k,
+            "superclusters": k2, "write_s": t_write, "import_s": t_import,
+            "bvh_s": bvh_log.builds[0][1], "setup_s": t_setup, "render_s": secs,
+            "rays_per_s": rays / secs, "bvh_vs_brute_pixels": close, "launches": launches}
+
+
+def timed_render(r):
+    t0 = time.perf_counter()
+    film = r.render()  # returns host arrays: the device work is done
+    return film, time.perf_counter() - t0
+
+
+def yaml_exr_on_card(pt, dev, count):
+    """9b: examples/cornell.yaml (with cornell.obj) through the port's
+    importer, rendered at 64x64 on the card and on the CPU (the plain
+    versions) at phase 5's card-against-CPU limits (depth 1: every pixel
+    within rtol 1e-4, atol 1e-6; depth 4: >= 99% of the pixels within rtol
+    1e-3 and the means within 1e-3); the card's film written with
+    io/exr.write_film (float) and read back bit for bit. The card renders
+    are counted."""
+    import tempfile
+    from pathlib import Path
+
+    from phosphorus_mk2_tpu_torch.io.exr import read_exr, write_film
+    from phosphorus_mk2_tpu_torch.io.yaml_scene import import_scene
+
+    yaml_path = Path(__file__).resolve().parent / "examples" / "cornell.yaml"
+    launches, out = None, []
+    for depth in (1, 4):
+        scene = import_scene(str(yaml_path))
+        scene.camera.width = scene.camera.height = 64
+        opts = pt.Options(use_bvh=False, samples_per_pixel=8, samples_per_pass=4, path_depth=depth)
+        card, got = count(lambda: pt.Renderer(scene, opts, device=dev).render())
+        launches = got if launches is None else {k: launches[k] + got[k] for k in got}
+        cpu = pt.Renderer(scene, opts, device="cpu").render()
+        g, w = card["color"], cpu["color"]
+        check(np.isfinite(g).all() and g.mean() > 0, f"cornell.yaml depth {depth}: black film")
+        diff = float(np.abs(g - w).max())
+        if depth == 1:
+            check(np.allclose(g, w, rtol=1e-4, atol=1e-6)
+                  and np.allclose(card["alpha"], cpu["alpha"], rtol=1e-4, atol=1e-6),
+                  f"cornell.yaml depth 1: the card's film differs from the CPU's by {diff}")
+            out.append(f"depth 1 max |diff| {diff:.3g}")
+        else:
+            within = float(np.isclose(g, w, rtol=1e-3, atol=1e-6).all(axis=-1).mean())
+            check(within >= 0.99 and np.isclose(g.mean(), w.mean(), rtol=1e-3),
+                  f"cornell.yaml depth 4: {within} of the pixels within rtol 1e-3, means "
+                  f"{g.mean()} {w.mean()}")
+            out.append(f"depth 4 pixels within rtol 1e-3 {within:.6f}, max |diff| {diff:.3g}, "
+                       f"means {g.mean():.6f} {w.mean():.6f}")
+    check(launches["mt_closest"] > 0, "cornell.yaml: mt_closest was not launched")
+    with tempfile.TemporaryDirectory() as tmp:
+        exr = os.path.join(tmp, "film.exr")
+        write_film(exr, card, pixel_type="float")
+        back = read_exr(exr)
+    same = all(np.array_equal(back[ch], card["color"][..., i]) for i, ch in enumerate("RGB"))
+    same = same and np.array_equal(back["A"], card["alpha"])
+    same = same and all(np.array_equal(back[f"normal.{ch}"], card["normal"][..., i])
+                        for i, ch in enumerate("XYZ"))
+    check(same, "cornell.yaml: the EXR read back differs from the film")
+    print(f"examples/cornell.yaml 64x64 8 spp: {len(scene.meshes)} meshes, "
+          f"{len(scene.materials)} materials; card vs CPU: " + "; ".join(out)
+          + f"; EXR (float) read back bit for bit; launches {launches}", flush=True)
+    return {"card_vs_cpu": out, "launches": launches}
+
+
+def sharded_on_card(pt, scenes, dev, card, phase5_film, count):
+    """9c: Renderer(n_devices=1) gives phase 5's cornell_box film bit for
+    bit (counted); a world-size-1 NCCL group through parallel.initialize
+    renders cornell_box 64x64 and runs an all-reduce and an all-gather on
+    the card; two gloo ranks, both on cuda:0 (NCCL refuses two ranks on
+    one card), render cornell_box 256x256 (brute) and terrain_scene
+    256x256 (use_bvh=True): the all-gathered films bit-equal to one
+    process's; and the gradient of color.sum() with respect to (emission,
+    lobe_weight) on cornell_box 64x64 (4 spp, depth 4), all-reduced,
+    within 1e-4 of each field's max |g| of one process's (phase 8's
+    bound). A rank that fails fails the phase."""
+    import tempfile
+
+    from phosphorus_mk2_tpu_torch.parallel import make_wave_mesh
+    from phosphorus_mk2_tpu_torch.tools import rank_parity
+
+    five = dict(use_bvh=False, use_pallas=True, path_depth=4, samples_per_pixel=16,
+                samples_per_pass=4)
+    r = pt.Renderer(scenes.cornell_box(256, 256), pt.Options(**five), n_devices=1, device=dev)
+    check(r.mesh.size == 1, f"n_devices=1 made a mesh of {r.mesh.size}")
+    film, launches = count(r.render)
+    check(np.array_equal(film["color"], phase5_film),
+          "Renderer(n_devices=1) differs from phase 5's cornell_box film")
+
+    box = {"scene": "cornell_box", "scene_kw": {"width": 64, "height": 64},
+           "options": {"use_bvh": False, "samples_per_pixel": 4, "path_depth": 4}}
+    nccl_job = {"device": card, "renders": [box]}
+    gloo_job = {"device": card, "renders": [
+        {"scene": "cornell_box", "scene_kw": {"width": 256, "height": 256},
+         "options": {"use_bvh": False, "samples_per_pixel": 4, "path_depth": 4}},
+        {"scene": "terrain_scene", "scene_kw": {"width": 256, "height": 256},
+         "options": {"use_bvh": True, "samples_per_pixel": 2, "path_depth": 4}}],
+        "grad": {"scene": "cornell_box", "scene_kw": {"width": 64, "height": 64},
+                 "fields": ["emission", "lobe_weight"], "spp": 4, "depth": 4}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        nccl = pool.submit(rank_parity.spawn, nccl_job, os.path.join(tmp, "nccl"), 1, "nccl",
+                           RANK_TIMEOUT)
+        gloo = pool.submit(rank_parity.spawn, gloo_job, os.path.join(tmp, "gloo"), 2, "gloo",
+                           RANK_TIMEOUT)
+        # the one-process references, meanwhile
+        mesh = make_wave_mesh(1, card)
+        refs = [rank_parity.render(spec, mesh) for spec in [box] + gloo_job["renders"]]
+        ref_grad = rank_parity.grad(gloo_job["grad"], mesh)
+        try:
+            (one,), two = nccl.result(), gloo.result()
+        except RuntimeError as e:
+            raise PhaseError(f"sharded render: {e}") from e
+    secs = time.perf_counter() - t0
+    for k in ("color", "normal", "alpha"):
+        check(np.array_equal(one[f"film0_{k}"], refs[0][k]),
+              f"the world-size-1 NCCL group's {k} differs from one process's")
+    x = np.arange(8, dtype=np.float32)
+    check(np.array_equal(one["nccl_sum"], x) and np.array_equal(one["nccl_gather"], x),
+          "NCCL all-reduce / all-gather on one rank changed the data")
+    errs = {}
+    for rank, res in enumerate(two):
+        for i, ref in enumerate(refs[1:]):
+            for k in ("color", "normal", "alpha"):
+                check(np.array_equal(res[f"film{i}_{k}"], ref[k]),
+                      f"rank {rank}: {gloo_job['renders'][i]['scene']} {k} differs from one "
+                      f"process's (max |diff| {np.abs(res[f'film{i}_{k}'] - ref[k]).max()})")
+        for f, g in ref_grad.items():
+            scale = float(np.abs(g).max())
+            err = float(np.abs(res[f"grad_{f}"] - g).max()) / max(scale, 1e-30)
+            errs[f] = max(errs.get(f, 0.0), err)
+            check(scale > 0 and err <= 1e-4, f"rank {rank}: the {f} gradient is {err:.3g} of "
+                  f"its max |g| {scale} from one process's")
+    print(f"sharded: Renderer(n_devices=1) cornell_box 256x256 16 spp equal to phase 5's film "
+          f"bit for bit, launches {launches}; world-size-1 NCCL group: cornell_box 64x64 film "
+          f"bit-equal, all-reduce and all-gather on the card exact; two gloo ranks on {card}: "
+          f"cornell_box 256x256 4 spp (brute) and terrain_scene 256x256 2 spp (use_bvh=True) "
+          f"all-gathered films bit-equal to one process's, gradient (emission, lobe_weight) "
+          f"max err / max |g| " + ", ".join(f"{f} {e:.3g}" for f, e in errs.items())
+          + f"; ranks and references {secs:.2f} s", flush=True)
+    return {"grad_rel_err": errs, "ranks_s": secs, "launches": launches}
+
+
+def scene_io_phase(pt, scenes, mt, front, wave, dev, smi, phase5_films):
+    """Phase 9. Its main path is the counted calls of 9a-9c."""
+    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
+    count = launch_counter((mt, front, wave), totals)
+    summary = {
+        "bmw": bmw_on_card(pt, dev, smi, count),
+        "yaml_exr": yaml_exr_on_card(pt, dev, count),
+        "sharded": sharded_on_card(pt, scenes, dev, f"cuda:{torch.cuda.current_device()}",
+                                   phase5_films["cornell_box brute"], count),
+    }
+    for k in ("mt_closest", "mt_anyhit", "front_full", "wave_mt"):
+        check(totals[k] > 0, f"phase 9: {k} was not launched")
+    summary["launches_counted"] = totals
+    print(json.dumps({"scene_io": summary}), flush=True)
+    return totals
+
+
 def run(profile: bool, upto: int) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2453,7 +2728,9 @@ def run(profile: bool, upto: int) -> int:
                                                     {"front_k": 8})
 
     phase("5 main path")
-    launches = main_path(mt, front, wave, ct, probe, pt, scenes, dev)
+    launches, phase5_films = main_path(mt, front, wave, ct, probe, pt, scenes, dev)
+    if upto < 6:
+        return 0
 
     if profile:
         phase("profile")
@@ -2476,8 +2753,13 @@ def run(profile: bool, upto: int) -> int:
     phase("8 gradients and inverse rendering")
     grad_launches = gradients_phase(pt, scenes, ct, mt, front, wave, terrain, terrain_data, dev,
                                     profile)
+    if upto < 9:
+        return 0
+
+    phase("9 scene I/O and sharded render")
+    io_launches = scene_io_phase(pt, scenes, mt, front, wave, dev, smi, phase5_films)
     for row in rows:  # the kernels line counts the main path of every phase
-        row["launches"] += grad_launches[row["name"]]
+        row["launches"] += grad_launches[row["name"]] + io_launches[row["name"]]
 
     print(json.dumps({"tracer_vs_oracle": {"exact_t_ties": ties, "rays": N_RAYS,
                                            "fallback_share": fallback_share,
@@ -2495,7 +2777,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one pass of each main-path render with torch.profiler")
-    ap.add_argument("--upto", type=int, default=8, metavar="PHASE",
+    ap.add_argument("--upto", type=int, default=9, metavar="PHASE",
                     help="stop after this phase (2 or 3: build and parity only, for a "
                          "first look at a new kernel); prints no result line")
     ap.add_argument("--sweep-timing", action="store_true",
@@ -2504,11 +2786,12 @@ def main() -> int:
     ap.add_argument("--m", default="", metavar="M,...",
                     help="with --sweep-timing: more ray counts to time, comma-separated")
     ap.add_argument("--package", metavar="DIR",
-                    help="with --sweep-timing: time the port of the checkout in DIR")
+                    help="drive the port of the checkout in DIR (with --sweep-timing, or "
+                         "--upto 5 to time the main path of another version)")
     args = ap.parse_args()
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
     if args.sweep_timing:
-        if args.package:
-            sys.path.insert(0, os.path.abspath(args.package))
         if not torch.cuda.is_available():
             print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
             return 2
@@ -2518,7 +2801,7 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if rc == 0 and args.upto < 8:
+    if rc == 0 and args.upto < 9:
         print(f"chip_smoke: stopped after phase {args.upto}; no result", file=sys.stderr)
     return rc
 

@@ -1,11 +1,13 @@
 """phosphorus_mk2_tpu_torch — the PyTorch/CUDA port of phosphorus_mk2_tpu.
 
-A differentiable wavefront path tracer for one NVIDIA H100, held against
+A differentiable wavefront path tracer for NVIDIA H100s, held against
 the JAX package beside it on the same inputs: forward renders
 (``Renderer``), pixel gradients (``integrator.path.render_pass`` with
-``trainable=``) and inverse rendering (``InverseRenderer``). Its layout
-mirrors the JAX package (math/, core/, bsdf/, accel/, integrator/,
-scenes/, renderer.py, optim.py);
+``trainable=``) and inverse rendering (``InverseRenderer``), with the
+pixels sharded over devices and ranks (``parallel/``), and scenes read
+from YAML, OBJ, PLY and Alembic files (``io/``). Its layout mirrors the
+JAX package (math/, core/, bsdf/, accel/, integrator/, scenes/, io/,
+parallel/, renderer.py, optim.py);
 the brute-force tracer's Möller-Trumbore kernels and the cluster tracer's
 front-table and wave kernels are CUDA C++ for sm_90a (csrc/mt.cu,
 csrc/front.cu and csrc/wave.cu, bound in accel/mt.py, accel/front.py and

@@ -7,8 +7,16 @@ tensors, are put into the scene for each step with
 ``dataclasses.replace``, and a ``torch.optim`` optimizer (Adam by
 default, the numbers of ``optax.adam``) takes the step. Keys are the
 JAX package's threefry keys (math/rng.py), so a run takes the samples
-the JAX package's run takes. One device: ``n_devices`` other than None
-or 1 raises until the multi-GPU slice.
+the JAX package's run takes.
+
+With ``n_devices`` (or under torchrun) the render is sharded as the JAX
+package shards it: the pixels, the targets and the mask split over a
+wave mesh (``parallel/sharding.py``), the parameters replicated on each
+device by a differentiable copy from the one leaf (autograd sums the
+shards' gradients into it), and across ranks one all-reduce a step of
+the gradients and the loss. The loss is normalised over the padded and
+masked frame, sum(err * err) / sum(mask), so a step is the same at any
+shard count.
 """
 from __future__ import annotations
 
@@ -22,16 +30,15 @@ from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
 from phosphorus_mk2_tpu_torch.convert import adam_state_from_npz, adam_state_to_npz
 from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
 from phosphorus_mk2_tpu_torch.core.options import Options
-from phosphorus_mk2_tpu_torch.device import resolve_device
-from phosphorus_mk2_tpu_torch.integrator.path import (
-    BRUTE_MAX_TRIS,
-    frame_pixels,
-    make_tracer,
-    render_aovs,
-    render_pass_pixels,
-)
+from phosphorus_mk2_tpu_torch.integrator.path import BRUTE_MAX_TRIS, render_aovs
 from phosphorus_mk2_tpu_torch.math import rng
 from phosphorus_mk2_tpu_torch.math.vec import maximum
+from phosphorus_mk2_tpu_torch.parallel.distributed import all_reduce_grads, rank_and_world
+from phosphorus_mk2_tpu_torch.parallel.sharding import (
+    make_sharded_render,
+    make_wave_mesh,
+    split_frame,
+)
 
 TRAINABLE_FIELDS = ("emission", "lobe_weight", "lobe_param", "vertices", "normals")
 
@@ -83,29 +90,31 @@ class InverseRenderer:
         from the list of parameter tensors (sorted by field name); the
         default is ``torch.optim.Adam(lr=learning_rate)``. Checkpoints
         hold Adam's state.
-        device: "cuda" (the default) or "cpu"."""
+        n_devices: devices of the wave mesh the render is sharded over
+        (``Renderer``'s meaning; None: all the cards, or one CPU shard).
+        device: "cuda" (the default), "cuda:k" or "cpu"."""
         for f in trainable:
             if f not in TRAINABLE_FIELDS:
                 raise ValueError(f"not trainable: {f}")
-        if n_devices not in (None, 1):
-            raise NotImplementedError(
-                f"n_devices={n_devices}: the port renders on one device until "
-                "ROADMAP.md Queue 1 slice 8 (multi-GPU)"
-            )
-        self.device = resolve_device(device)
+        self.mesh = make_wave_mesh(n_devices, device)
+        self.device = self.mesh.devices[0]
         self.scene = scene
         self.trainable = tuple(trainable)
         self.spp = spp
         self._max_depth = max_depth
         self._use_bvh = use_bvh
-        self._sorted = sorted_dispatch
 
         data = scene.build(self.device)
         # the BVH only where make_tracer takes the cluster tracer
         if use_bvh and data.num_tris > BRUTE_MAX_TRIS:
             data = attach_bvh(data)
         self.data = data
-        self.tracer = make_tracer(data, use_bvh)
+        self._fn, _, _, n_valid = make_sharded_render(
+            self.mesh, data, scene.camera, max_depth=max_depth, use_bvh=use_bvh,
+            sorted_dispatch=sorted_dispatch,
+            trainable=self.trainable,  # the backward pays for this set only
+        )
+        self.tracer = self._fn.tracers[self.device]
 
         view_list = list(views) if views else [(scene.camera, target)]
         self._n_views = len(view_list)
@@ -116,12 +125,13 @@ class InverseRenderer:
                     f"view resolution {vc.width}x{vc.height} != primary {w}x{h}"
                 )
         self._cams = [camera_to_params(vc, self.device) for vc, _ in view_list]
-        self._targets = [
-            torch.as_tensor(np.asarray(vt, np.float32).reshape(-1, 3), device=self.device)
-            for _, vt in view_list
-        ]
-        self.px, self.py = frame_pixels(w, h, self.device)
-        self._n_pix = float(w * h)
+        # targets and mask split as the pixels are; a shard without
+        # padding needs no mask
+        self._targets = [split_frame(self.mesh, torch.from_numpy(
+            np.asarray(vt, np.float32).reshape(-1, 3))) for _, vt in view_list]
+        self._masks = [None if bool(m.all()) else m
+                       for m in split_frame(self.mesh, torch.ones((n_valid, 1)))]
+        self._n_valid = float(n_valid)  # sum(mask)
 
         self._log_emission = bool(log_emission) and "emission" in self.trainable
         params = {f: getattr(data, f).detach().clone() for f in self.trainable}
@@ -145,26 +155,27 @@ class InverseRenderer:
             fields["emission"] = torch.exp(fields["emission"])
         return fields
 
-    def _render(self, sd, cam, key, n):
-        out = render_pass_pixels(
-            sd, cam, rng.key_seed(key), 0, n, self.px, self.py,
-            max_depth=self._max_depth, tracer=self.tracer,
-            sorted_dispatch=self._sorted,
-            trainable=self.trainable,  # the backward pays for this set only
-        )
-        return out["color"] / n
+    def _errors(self, sd, cam, key, n, tgts):
+        """Each shard's masked residual of an n-sample render."""
+        outs = self._fn(sd, rng.key_seed(key), 0, n, cam_params=cam)
+        errs = [o["color"] / n - t for o, t in zip(outs, tgts)]
+        return [e if m is None else e * m for e, m in zip(errs, self._masks)]
 
     def _loss(self, key, view: int):
         sd = dataclasses.replace(self.data, **self._fields(self.params))
-        cam, tgt = self._cams[view], self._targets[view]
+        cam, tgts = self._cams[view], self._targets[view]
         if self._unbiased:
             half = max(1, self.spp // 2)
             k1, k2 = rng.split(key)
-            e1 = self._render(sd, cam, k1, half) - tgt
-            e2 = self._render(sd, cam, k2, half) - tgt
-            return (e1 * e2).sum() / self._n_pix
-        err = self._render(sd, cam, key, self.spp) - tgt
-        return (err * err).sum() / self._n_pix
+            e1 = self._errors(sd, cam, k1, half, tgts)
+            e2 = self._errors(sd, cam, k2, half, tgts)
+            parts = [(a * b).sum() for a, b in zip(e1, e2)]
+        else:
+            parts = [(e * e).sum() for e in self._errors(sd, cam, key, self.spp, tgts)]
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(self.device)
+        return total / self._n_valid
 
     def step(self) -> float:
         if self._fresh_rng:
@@ -175,9 +186,13 @@ class InverseRenderer:
         self.opt.zero_grad(set_to_none=True)
         loss = self._loss(sub, view)
         loss.backward()
+        if rank_and_world()[1] > 1:  # each rank's loss covers its own pixels
+            value, = all_reduce_grads(list(self.params.values()), loss)
+        else:
+            value = float(loss.detach())
         self.opt.step()
         self._step_count += 1
-        return float(loss.detach())
+        return value
 
     def run(self, n_steps: int, log_every: int = 0) -> list:
         losses = []

@@ -1,19 +1,24 @@
-"""High-level render session on one device: build, passes, film.
+"""High-level render session: device mesh, build, passes, film.
 
-Counterpart of ``phosphorus_mk2_tpu/renderer.py`` for one CUDA device
-(or the CPU when the caller asks for it): "preprocess" is
-``Scene.build(device)``, the BVH and cluster tables when ``use_bvh``, and
-the tracer's tables; each pass
-accumulates ``samples_per_pass`` samples into device-resident sums,
-in sequential pixel chunks of at most ``max_wavefront`` rays; the film
-comes back to the host after every pass.
+Counterpart of ``phosphorus_mk2_tpu/renderer.py``: "discover" is a device
+mesh (``parallel/sharding.make_wave_mesh``: the cards, or shards of the
+CPU when the caller asks for it); "preprocess" is ``Scene.build``, the
+BVH and cluster tables when ``use_bvh``, copied to each device with a
+tracer each; each pass accumulates ``samples_per_pass`` samples into
+device-resident sums, every shard's block of pixels in sequential chunks
+of at most ``max_wavefront`` pixels (so no device holds more; the JAX
+package splits each chunk over the shards instead, and the films are
+the same: a pixel's samples do not depend on the wavefront it rides in);
+the film comes back to the host after every pass, all-gathered across
+ranks, so that every rank holds all of it.
 
 Checkpoint/resume (absent in the reference, SURVEY.md §5.4): with
 ``Options.checkpoint_dir`` set, the film sums, the sample counter and the
 render's identity stamp are written every ``checkpoint_every`` passes and
-at the end, so a killed render resumes exactly; a stamp that differs
-from this render's is refused. The file is the JAX package's
-``film_checkpoint.npz``, with the same stamp for the same scene.
+at the end (by rank 0), so a killed render resumes exactly, at any shard
+count; a stamp that differs from this render's is refused. The file is
+the JAX package's ``film_checkpoint.npz``, with the same stamp for the
+same scene.
 """
 from __future__ import annotations
 
@@ -26,16 +31,17 @@ import time
 import numpy as np
 import torch
 
-from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
 from phosphorus_mk2_tpu_torch.core.options import Options
 from phosphorus_mk2_tpu_torch.core.scene import Scene
-from phosphorus_mk2_tpu_torch.device import resolve_device
-from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
-from phosphorus_mk2_tpu_torch.integrator.path import (
-    BRUTE_MAX_TRIS,
-    frame_pixels,
-    make_tracer,
-    render_pass_pixels,
+from phosphorus_mk2_tpu_torch.integrator.path import BRUTE_MAX_TRIS
+from phosphorus_mk2_tpu_torch.parallel.distributed import rank_and_world
+from phosphorus_mk2_tpu_torch.parallel.sharding import (
+    gather_film,
+    gather_sums,
+    make_sharded_render,
+    make_wave_mesh,
+    split_frame,
 )
 
 log = logging.getLogger(__name__)
@@ -43,10 +49,15 @@ log = logging.getLogger(__name__)
 
 class Renderer:
     def __init__(self, scene: Scene, options: Options | None = None,
-                 device="cuda"):
-        """device: "cuda" (the default) or "cpu"; asking for CUDA without a
-        card raises."""
-        self.device = resolve_device(device)
+                 n_devices=None, mesh=None, device="cuda"):
+        """n_devices: devices of the default 1-D wave mesh (all the cards,
+        or one CPU shard, when None; more cards than there are raises).
+        mesh: a prebuilt ``parallel.DeviceMesh`` instead (for example
+        ``parallel.make_render_mesh()`` under torchrun). device: "cuda"
+        (the default), "cuda:k" or "cpu"; asking for CUDA without a card
+        raises."""
+        self.mesh = mesh if mesh is not None else make_wave_mesh(n_devices, device)
+        self.device = self.mesh.devices[0]
         self.scene = scene
         self.options = options or Options()
         o = self.options
@@ -56,39 +67,37 @@ class Renderer:
         # it never reads (its brute tracer runs); none is built here
         if cluster:
             self.data = attach_bvh(self.data)
-        self.tracer = make_tracer(self.data, o.use_bvh, o.use_pallas,
-                                  tracer_tune=o.tracer_tune)
-        self.cam_params = camera_to_params(scene.camera, self.device)
-        self.px, self.py = frame_pixels(
-            scene.camera.width, scene.camera.height, self.device
-        )
         self.film_strata = max(1, round(math.sqrt(o.samples_per_pixel)))
+        self.fn, self.px, self.py, self.n_valid = make_sharded_render(
+            self.mesh, self.data, scene.camera, max_depth=o.path_depth,
+            use_bvh=o.use_bvh, use_pallas=o.use_pallas, film_strata=self.film_strata,
+            mis=o.mis, tracer_tune=o.tracer_tune, aniso_taps=o.aniso_taps,
+        )
+        self.tracer = self.fn.tracers[self.device]
         # 0 = auto: the JAX package's bounds (the cluster tracer's per-ray
         # tables and row gathers scale with the wavefront)
         self.max_wavefront = o.max_wavefront or ((1 << 17) if cluster else (1 << 20))
 
     @torch.no_grad()
-    def _pass(self, done: int, todo: int, cancel) -> dict | None:
-        """One accumulation pass over the frame, in pixel chunks (a
-        forward render: no graph). Returns None when cancelled between
-        chunks."""
-        n_pix = self.px.shape[0]
+    def _pass(self, done: int, todo: int, cancel) -> list | None:
+        """One accumulation pass over the frame: a list, in mesh order, of
+        each shard's sums on its device (a forward render: no graph).
+        Each shard's block goes in chunks of max_wavefront pixels, every
+        shard's chunk launched before the next chunk. Returns None when
+        cancelled between chunks."""
+        per = self.px[0].shape[0]
         chunk = self.max_wavefront
         pieces = []
-        for s0 in range(0, n_pix, chunk):
+        for s0 in range(0, per, chunk):
             if s0 and cancel is not None and cancel():
                 return None
-            s1 = min(s0 + chunk, n_pix)
-            pieces.append(render_pass_pixels(
-                self.data, self.cam_params, self.options.seed, done, todo,
-                self.px[s0:s1], self.py[s0:s1],
-                max_depth=self.options.path_depth, tracer=self.tracer,
-                film_strata=self.film_strata, mis=self.options.mis,
-                aniso_taps=self.options.aniso_taps,
-            ))
+            s1 = min(s0 + chunk, per)
+            pieces.append(self.fn(self.data, self.options.seed, done, todo,
+                                  [p[s0:s1] for p in self.px], [p[s0:s1] for p in self.py]))
         if len(pieces) == 1:
             return pieces[0]
-        return {k: torch.cat([p[k] for p in pieces]) for k in pieces[0]}
+        return [{k: torch.cat([p[i][k] for p in pieces]) for k in pieces[0][i]}
+                for i in range(len(pieces[0]))]
 
     def passes(self, cancel=None):
         """Yield (film, done_spp) after each accumulation pass.
@@ -99,7 +108,9 @@ class Renderer:
         between wavefront chunks; on cancel the generator returns without
         yielding a partial pass.
         With ``checkpoint_dir`` set the render resumes from its checkpoint
-        there, whatever ``checkpoint_every`` says.
+        there, whatever ``checkpoint_every`` says. Across ranks every rank
+        runs the passes in step (each film is all-gathered), so cancel
+        must answer alike on every rank.
         """
         opts = self.options
         spp = opts.samples_per_pixel
@@ -113,25 +124,17 @@ class Renderer:
             out = self._pass(done, todo, cancel)
             if out is None:
                 return
-            sums = out if sums is None else {k: sums[k] + out[k] for k in sums}
+            sums = out if sums is None else [{k: s[k] + o[k] for k in s}
+                                             for s, o in zip(sums, out)]
             done += todo
             pass_idx += 1
             if (opts.checkpoint_dir and opts.checkpoint_every
                     and pass_idx % opts.checkpoint_every == 0):
                 self._save_checkpoint(sums, done)
-            yield self._film(sums, done), done
+            yield gather_film(sums, self.scene.camera.width,
+                              self.scene.camera.height, done), done
         if opts.checkpoint_dir and opts.checkpoint_every:
             self._save_checkpoint(sums, done)
-
-    def _film(self, sums: dict, spp: int) -> dict:
-        inv = 1.0 / spp
-        w, h = self.scene.camera.width, self.scene.camera.height
-        host = {k: (v * inv).cpu().numpy() for k, v in sums.items()}
-        return {
-            "color": host["color"].reshape(h, w, 3),
-            "normal": host["normal"].reshape(h, w, 3),
-            "alpha": host["alpha"].reshape(h, w),
-        }
 
     def render(self) -> dict:
         """All passes; returns the final film (see ``passes``)."""
@@ -178,22 +181,28 @@ class Renderer:
             "seed": o.seed,
         }
 
-    def _save_checkpoint(self, sums: dict, done: int) -> None:
-        """Write atomically: a temporary file, then os.replace."""
+    def _save_checkpoint(self, sums: list, done: int) -> None:
+        """Rank 0 writes the whole frame's sums (no padding) atomically: a
+        temporary file, then os.replace."""
+        n = self.n_valid
+        host = {k: v[:n].numpy() for k, v in gather_sums(sums).items()}
+        if rank_and_world()[0] != 0:
+            return
         os.makedirs(self.options.checkpoint_dir, exist_ok=True)
         tmp = self._ckpt_path()[: -len(".npz")] + "_tmp"
         np.savez(
             tmp,
-            **{k: sums[k].cpu().numpy() for k in ("color", "normal", "alpha")},
+            **{k: host[k] for k in ("color", "normal", "alpha")},
             done=done,
             **self._ckpt_stamp(),
         )
         os.replace(tmp + ".npz", self._ckpt_path())
 
     def _load_checkpoint(self):
-        """(sums on this renderer's device, samples done), or (None, 0)
-        without a checkpoint. Raises RuntimeError for a checkpoint
-        without the stamp fields or with a different stamp."""
+        """(each shard's sums on its device, samples done), or (None, 0)
+        without a checkpoint. The file's rows past the frame (a JAX
+        checkpoint's padding) are dropped. Raises RuntimeError for a
+        checkpoint without the stamp fields or with a different stamp."""
         if not self.options.checkpoint_dir:
             return None, 0
         path = self._ckpt_path()
@@ -218,6 +227,9 @@ class Renderer:
                 f"(mismatched {bad}); delete it or restore the original "
                 "scene/options to resume"
             )
-        sums = {k: torch.from_numpy(ck[k]).to(self.device)
-                for k in ("color", "normal", "alpha")}
+        sums = [{} for _ in self.mesh.devices]
+        for k in ("color", "normal", "alpha"):
+            rows = torch.from_numpy(ck[k][: self.n_valid])
+            for i, block in enumerate(split_frame(self.mesh, rows)):
+                sums[i][k] = block
         return sums, int(ck["done"])

@@ -3,7 +3,9 @@ large-mesh terrain that stands in for config 4, and its textured variant)."""
 
 from phosphorus_mk2_tpu_torch.scenes.builders import (
     cornell_box,
+    make_param_surface,
     make_quad,
+    make_torus,
     make_uv_sphere,
     multi_bsdf_scene,
     sphere_in_box,
@@ -13,7 +15,9 @@ from phosphorus_mk2_tpu_torch.scenes.builders import (
 
 __all__ = [
     "cornell_box",
+    "make_param_surface",
     "make_quad",
+    "make_torus",
     "make_uv_sphere",
     "multi_bsdf_scene",
     "sphere_in_box",

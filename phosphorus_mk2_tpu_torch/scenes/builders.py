@@ -29,6 +29,76 @@ def make_quad(a, b, c, d, material=None, name="quad") -> Mesh:
     return Mesh(vertices=verts, faces=faces, material=material, smooth=False, name=name)
 
 
+def make_param_surface(
+    f, n_u: int, n_v: int, material=None, name="surface",
+    wrap_u: bool = False, wrap_v: bool = False,
+) -> Mesh:
+    """Triangulated parametric surface (vectorized) with analytic-ish
+    per-vertex normals from the parameter-space tangents and uv coords.
+
+    f: (U, V) meshgrid arrays in [0,1] -> (..., 3) positions.
+    wrap_u/wrap_v: close the seam (torus/cylinder topologies).
+    """
+    nu = n_u if wrap_u else n_u + 1
+    nv = n_v if wrap_v else n_v + 1
+    uu = (np.arange(nu, dtype=np.float64) / n_u)[:, None] * np.ones((1, nv))
+    vv = np.ones((nu, 1)) * (np.arange(nv, dtype=np.float64) / n_v)[None, :]
+    pos = np.asarray(f(uu, vv), np.float64)  # (nu, nv, 3)
+
+    eps = 1e-4
+    du = (np.asarray(f(uu + eps, vv)) - np.asarray(f(uu - eps, vv))) / (2 * eps)
+    dv = (np.asarray(f(uu, vv + eps)) - np.asarray(f(uu, vv - eps))) / (2 * eps)
+    nrm = np.cross(du, dv)
+    ln = np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nrm = nrm / np.maximum(ln, 1e-12)
+
+    verts = pos.reshape(-1, 3).astype(np.float32)
+    normals = nrm.reshape(-1, 3).astype(np.float32)
+    uvs = np.stack([uu, vv], axis=-1).reshape(-1, 2).astype(np.float32)
+
+    iu = np.arange(n_u)
+    iv = np.arange(n_v)
+    i0 = (iu[:, None] % nu) * nv + (iv[None, :] % nv)
+    i1 = ((iu[:, None] + 1) % nu) * nv + (iv[None, :] % nv)
+    i2 = (iu[:, None] % nu) * nv + ((iv[None, :] + 1) % nv)
+    i3 = ((iu[:, None] + 1) % nu) * nv + ((iv[None, :] + 1) % nv)
+    fa = np.stack([i0, i1, i2], axis=-1).reshape(-1, 3)
+    fb = np.stack([i2, i1, i3], axis=-1).reshape(-1, 3)
+    faces = np.concatenate([fa, fb], axis=0).astype(np.int32)
+    # drop degenerate tris (poles of squashed spheres etc.)
+    a, b, c = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    area2 = np.linalg.norm(np.cross(b - a, c - a), axis=-1)
+    faces = faces[area2 > 1e-12]
+    return Mesh(
+        vertices=verts, faces=faces, normals=normals, uvs=uvs,
+        material=material, smooth=True, name=name,
+    )
+
+
+def make_torus(
+    center, major: float, minor: float, n_u=64, n_v=32,
+    material=None, name="torus", axis: str = "y",
+) -> Mesh:
+    """Torus around `axis` through center (smooth, uv-mapped)."""
+    cx, cy, cz = center
+
+    def f(u, v):
+        a = 2 * np.pi * u
+        b = 2 * np.pi * v
+        r = major + minor * np.cos(b)
+        if axis == "y":
+            x, y, z = r * np.cos(a), minor * np.sin(b), r * np.sin(a)
+        elif axis == "x":
+            y, z, x = r * np.cos(a), r * np.sin(a), minor * np.sin(b)
+        else:
+            x, y, z = r * np.cos(a), r * np.sin(a), minor * np.sin(b)
+        return np.stack([cx + x, cy + y, cz + z], axis=-1)
+
+    return make_param_surface(
+        f, n_u, n_v, material=material, name=name, wrap_u=True, wrap_v=True
+    )
+
+
 def make_uv_sphere(center, radius, n_theta=16, n_phi=32, material=None, name="sphere") -> Mesh:
     """UV sphere with per-vertex normals (smooth shaded)."""
     cx, cy, cz = center

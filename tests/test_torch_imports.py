@@ -70,12 +70,26 @@ def test_entry_points_refuse_cuda_without_a_card():
         Renderer(scene, Options(use_bvh=False))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         scene.build(device="cpu").to("cuda")
+    from phosphorus_mk2_tpu_torch.io.yaml_scene import import_scene
+    from phosphorus_mk2_tpu_torch.parallel import make_render_mesh, make_wave_mesh
+
+    for make in (make_wave_mesh, make_render_mesh, lambda: make_wave_mesh(2, "cuda:0")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Renderer(scene, Options(use_bvh=False), n_devices=2)
+    # an imported scene builds on the card by default, as a built-in one does
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        import_scene(str(ROOT / "examples" / "cornell.yaml")).build()
 
 
 def test_the_new_modules_are_walked():
     mods = _modules()
     for name in ("accel.bvh_builder", "accel.native_bvh", "accel.cluster_traverse",
-                 "accel.front", "accel.build", "accel.wave", "tools.row_gather_probe"):
+                 "accel.front", "accel.build", "accel.wave", "tools.row_gather_probe",
+                 "io.ogawa", "io.abc", "io.alembic", "io.obj", "io.ply", "io.exr",
+                 "io.yaml_scene", "parallel.distributed", "parallel.sharding",
+                 "tools.bmw_asset", "tools.rank_parity"):
         assert f"phosphorus_mk2_tpu_torch.{name}" in mods, name
     sources = {p.name for p in (PACKAGE / "csrc").iterdir()}
     assert {"mt.cu", "front.cu", "wave.cu", "bvh_builder.cpp"} <= sources

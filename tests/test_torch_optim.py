@@ -114,8 +114,8 @@ def test_arguments_refused():
                         views=[(scene.camera, img), (bad_cam, np.zeros((8, 8, 3)))])
     with pytest.raises(ValueError, match="not trainable"):
         InverseRenderer(scene, img, trainable=("tri_mat",), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        InverseRenderer(scene, img, n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="do not split"):
+        InverseRenderer(scene, img, n_devices=0, device="cpu")  # a mesh of no device
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             InverseRenderer(scene, img)  # the default device is cuda
