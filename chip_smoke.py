@@ -173,7 +173,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      respect to (emission, lobe_weight) is within 1e-4 of each field's
      max |g| of one process's. A rank that fails or hangs fails the
      phase. The timed BMW render, the BMW's 256x256 renders, the card's
-     cornell.yaml renders and the n_devices=1 render are counted.
+     cornell.yaml renders and the n_devices=1 render are counted;
+ 10. the CLI, the bench and the entry points (cli.py, bench.py, entry.py,
+     utils/profiling.py): (a) `cli.main` on builtin:cornell_box 256x256
+     -s 16 -d 4 --no-bvh -1, its EXR (half, zip) equal to phase 5's
+     cornell_box film cast to float16 bit for bit; (b) examples/cornell.yaml
+     128x128 through the CLI with --mis, equal to the same render through
+     Renderer on the card; (c) --optimize against an EXR target rendered on
+     the card, 4 steps with a checkpoint every 2: finite losses, the npz
+     with the JAX package's keys, a second call resuming at step 4; (d)
+     `python -m phosphorus_mk2_tpu_torch.bench --bmw` in a child process,
+     its six lines echoed as they come: rc 0, the six metrics of bench.py,
+     each > 0 with no error; (e) entry()'s forward step on the card against
+     the CPU and dryrun_multichip(1); (f) utils.profiling.trace around one
+     cornell_box pass writes a Chrome trace with kernel events. The calls of
+     (a)-(c), (e) and (f) are counted (the bench's process is not).
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -2672,6 +2686,233 @@ def scene_io_phase(pt, scenes, mt, front, wave, dev, smi, phase5_films):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the CLI, the bench and the entry points
+# ---------------------------------------------------------------------------
+
+BENCH_METRICS = ("cornell_fwd_bwd_rays_per_sec", "cornell_bvh_renderer_fwd_rays_per_sec",
+                 "bmw_live_fwd_rays_per_sec", "bmw_fwd_rays_per_sec",
+                 "bmw_fwd_bwd_rays_per_sec", "bmw_fwd_bwd_scoped_emlw_rays_per_sec")
+BENCH_TIMEOUT = 900        # seconds for the bench's process
+
+
+def half(a):
+    """A film as a half-float EXR holds it (io/exr.write_film's default)."""
+    return np.asarray(a, np.float32).astype(np.float16).astype(np.float32)
+
+
+def exr_film(read_exr, path):
+    ch = read_exr(path)
+    return np.stack([ch["R"], ch["G"], ch["B"]], axis=-1), ch["A"]
+
+
+def run_cli(cli, argv):
+    """cli.main(argv) with its standard output captured and echoed:
+    (return code, the output)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    print("\n".join("  cli: " + ln for ln in text.splitlines()), flush=True)
+    return rc, text
+
+
+def cli_on_card(pt, scenes, dev, phase5_film, count):
+    """10a-c: the port's CLI on the card. (a) builtin:cornell_box 256x256
+    -s 16 -d 4 --no-bvh -1: the EXR (half, zip) equal to phase 5's
+    cornell_box film cast to float16, bit for bit; (b) examples/cornell.yaml
+    128x128 -s 8 -d 4 --mis -1 against the same render through Renderer on
+    the card, bit for bit; (c) --optimize against an EXR target rendered
+    on the card: 4 steps with a checkpoint every 2, finite losses, the
+    recovered npz with the JAX package's keys (the trainable fields), and
+    a second call resuming at step 4. The CLI calls are counted."""
+    import tempfile
+    from pathlib import Path
+
+    from phosphorus_mk2_tpu_torch import cli
+    from phosphorus_mk2_tpu_torch.io.exr import read_exr, write_film
+    from phosphorus_mk2_tpu_torch.io.yaml_scene import import_scene
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exr = os.path.join(tmp, "box.exr")
+        (rc, _), launches = count(lambda: run_cli(cli, [
+            "builtin:cornell_box", "-o", exr, "--width", "256", "--height", "256",
+            "-s", "16", "-d", "4", "--no-bvh", "-1", "-v"]))
+        check(rc == 0, f"cli cornell_box returned {rc}")
+        rgb, _ = exr_film(read_exr, exr)
+        check(np.array_equal(rgb, half(phase5_film)),
+              "the CLI's cornell_box EXR differs from phase 5's film cast to half "
+              f"(max |diff| {np.abs(rgb - half(phase5_film)).max()})")
+        out["a"] = launches
+
+        yaml_path = Path(__file__).resolve().parent / "examples" / "cornell.yaml"
+        exr = os.path.join(tmp, "yaml.exr")
+        (rc, _), got = count(lambda: run_cli(cli, [
+            str(yaml_path), "-o", exr, "--width", "128", "--height", "128", "-s", "8",
+            "-d", "4", "--mis", "-1"]))
+        check(rc == 0, f"cli cornell.yaml returned {rc}")
+        scene = import_scene(str(yaml_path))
+        scene.camera.width = scene.camera.height = 128
+        ref = pt.Renderer(scene, pt.Options(samples_per_pixel=8, path_depth=4, mis=True),
+                          n_devices=1, device=dev).render()
+        rgb, alpha = exr_film(read_exr, exr)
+        check(np.array_equal(rgb, half(ref["color"])) and np.array_equal(alpha, half(ref["alpha"])),
+              "the CLI's cornell.yaml --mis EXR differs from Renderer's film cast to half "
+              f"(max |diff| {np.abs(rgb - half(ref['color'])).max()})")
+        check(ref["color"].mean() > 0, "cornell.yaml --mis: black film")
+        out["b"] = got
+        launches = {k: launches[k] + got[k] for k in launches}
+
+        target = pt.Renderer(scenes.cornell_box(64, 64),
+                             pt.Options(use_bvh=False, samples_per_pixel=16, path_depth=3),
+                             device=dev).render()
+        tgt = os.path.join(tmp, "target.exr")
+        write_film(tgt, target)
+        rec, ck = os.path.join(tmp, "rec.exr"), os.path.join(tmp, "ck")
+        argv = ["builtin:cornell_box", "-o", rec, "-d", "3", "--spp-per-pass", "4", "--no-bvh",
+                "--width", "64", "--height", "64", "--optimize", tgt, "--steps", "4",
+                "--lr", "0.05", "--checkpoint-dir", ck, "--checkpoint-every", "2", "-v", "-1"]
+        (rc, text), got = count(lambda: run_cli(cli, argv))
+        check(rc == 0, f"cli --optimize returned {rc}")
+        losses = [float(x) for x in re.findall(r"loss=(\S+)", text)]
+        check(len(losses) == 4 and all(math.isfinite(x) for x in losses),
+              f"cli --optimize losses {losses}")
+        params = np.load(rec + ".params.npz")
+        check(sorted(params.files) == ["emission", "lobe_weight"]
+              and all(np.isfinite(params[k]).all() for k in params.files),
+              f"cli --optimize wrote {params.files}")
+        check(os.path.exists(os.path.join(ck, "optimizer.npz")), "no optimizer checkpoint")
+        launches = {k: launches[k] + got[k] for k in launches}
+        (rc, text), got = count(lambda: run_cli(cli, argv))
+        check(rc == 0 and "resumed optimizer checkpoint at step 4" in text
+              and "(0 steps)" in text, "the second --optimize call did not resume at step 4")
+        launches = {k: launches[k] + got[k] for k in launches}
+    print(f"cli: cornell_box 256x256 16 spp depth 4 EXR equal to phase 5's film as half, "
+          f"launches {out['a']}; cornell.yaml 128x128 8 spp --mis EXR equal to Renderer's, "
+          f"launches {out['b']}; --optimize 4 steps losses {losses}, npz keys "
+          f"{sorted(params.files)}, resumed at step 4", flush=True)
+    return {"losses": losses, "launches": launches}
+
+
+def bench_on_card():
+    """10d: ``python -m phosphorus_mk2_tpu_torch.bench --bmw`` in a child
+    process: each line echoed as it comes; rc 0 and the six metrics in
+    order, each with a value > 0, a device and no error. The child is
+    killed at BENCH_TIMEOUT."""
+    import threading
+    from pathlib import Path
+
+    import phosphorus_mk2_tpu_torch
+
+    root = str(Path(phosphorus_mk2_tpu_torch.__file__).resolve().parents[1])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "phosphorus_mk2_tpu_torch.bench", "--bmw"],
+                            cwd=root, env=env, stdout=subprocess.PIPE, text=True)
+    killer = threading.Timer(BENCH_TIMEOUT, proc.kill)
+    killer.start()
+    lines = []
+    try:
+        for ln in proc.stdout:
+            print(ln, end="", flush=True)
+            if ln.startswith("{"):
+                lines.append(json.loads(ln))
+        rc = proc.wait()
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"the bench exited {rc} after {secs:.1f} s")
+    check([ln.get("metric") for ln in lines] == list(BENCH_METRICS),
+          f"the bench printed {[ln.get('metric') for ln in lines]}")
+    for ln in lines:
+        check("error" not in ln and ln.get("value", 0) > 0 and ln.get("device"),
+              f"bench line {ln}")
+    print(f"bench: six lines in {secs:.1f} s, rc 0", flush=True)
+    return {"seconds": secs, "lines": lines}
+
+
+def entries_on_card(dev, count):
+    """10e: entry()'s forward step on the card (counted) against the same
+    step on the CPU (the plain versions; 1 spp at depth 3: at least 99%
+    of the pixels within rtol 1e-3, atol 1e-6, as the depth-4 limit of
+    tests/test_torch_render.py; a flipped path moves the mean of 1,024
+    one-sample pixels by ~1e-3, so the means within 1e-2), then
+    dryrun_multichip(1) on the card (counted)."""
+    from phosphorus_mk2_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry()
+    got, launches = count(lambda: fn(*args).cpu().numpy())
+    fn_c, args_c = entry("cpu")
+    want = fn_c(*args_c).numpy()
+    check(got.shape == (1024, 3) and np.isfinite(got).all() and got.mean() > 0,
+          f"entry(): shape {got.shape}, mean {got.mean()}")
+    within = float(np.isclose(got, want, rtol=1e-3, atol=1e-6).all(axis=-1).mean())
+    check(within >= 0.99 and np.isclose(got.mean(), want.mean(), rtol=1e-2),
+          f"entry(): card against CPU {within} of the pixels, means {got.mean()} {want.mean()}")
+    t0 = time.perf_counter()
+    res, got_d = count(lambda: dryrun_multichip(1))
+    secs = time.perf_counter() - t0
+    check(res["resumed_at"] == 1 and math.isfinite(res["loss"]), f"dryrun_multichip(1): {res}")
+    print(f"entry(): cornell_box 32x32 depth 3 on the card, {within:.6f} of the pixels equal "
+          f"to the CPU's within rtol 1e-3, launches {launches}; dryrun_multichip(1): "
+          f"{res['tris']} triangles, loss {res['loss']:.6f}, {secs:.2f} s, launches {got_d}",
+          flush=True)
+    return {k: launches[k] + got_d[k] for k in launches}
+
+
+def profile_on_card(pt, scenes, dev, count):
+    """10f: utils.profiling.trace around one 4-spp pass of cornell_box
+    64x64 (counted): the Chrome trace written, non-empty, with kernel
+    events."""
+    import tempfile
+
+    from phosphorus_mk2_tpu_torch.utils.profiling import trace
+
+    r = pt.Renderer(scenes.cornell_box(64, 64),
+                    pt.Options(use_bvh=False, samples_per_pixel=4, path_depth=4), device=dev)
+    r.render()  # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        def traced():
+            with trace(tmp):
+                r.render()
+        _, launches = count(traced)
+        files = [os.path.join(tmp, f) for f in os.listdir(tmp) if f.endswith(".json")]
+        check(len(files) == 1 and os.path.getsize(files[0]) > 0, f"trace files {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(kernels > 0, "the trace holds no kernel events")
+    print(f"profiling.trace: one cornell_box 64x64 pass, {size} bytes, {len(events)} events, "
+          f"{kernels} kernels; launches {launches}", flush=True)
+    return launches
+
+
+def entry_points_phase(pt, scenes, mt, front, wave, dev, phase5_films):
+    """Phase 10. Its main path is the counted calls of 10a-c, e and f; the
+    bench (10d) runs in its own process and prints its own lines."""
+    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
+    count = launch_counter((mt, front, wave), totals)
+    summary = {
+        "cli": cli_on_card(pt, scenes, dev, phase5_films["cornell_box brute"], count),
+        "bench": bench_on_card(),
+        "entries": entries_on_card(dev, count),
+        "profiling": profile_on_card(pt, scenes, dev, count),
+    }
+    for k in ("mt_closest", "mt_anyhit", "front_full", "wave_mt"):
+        check(totals[k] > 0, f"phase 10: {k} was not launched")
+    summary["launches_counted"] = totals
+    print(json.dumps({"entry_points": summary}), flush=True)
+    return totals
+
+
 def run(profile: bool, upto: int) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2758,8 +2999,14 @@ def run(profile: bool, upto: int) -> int:
 
     phase("9 scene I/O and sharded render")
     io_launches = scene_io_phase(pt, scenes, mt, front, wave, dev, smi, phase5_films)
+    if upto < 10:
+        return 0
+
+    phase("10 CLI, bench and entry points")
+    entry_launches = entry_points_phase(pt, scenes, mt, front, wave, dev, phase5_films)
     for row in rows:  # the kernels line counts the main path of every phase
-        row["launches"] += grad_launches[row["name"]] + io_launches[row["name"]]
+        row["launches"] += (grad_launches[row["name"]] + io_launches[row["name"]]
+                            + entry_launches[row["name"]])
 
     print(json.dumps({"tracer_vs_oracle": {"exact_t_ties": ties, "rays": N_RAYS,
                                            "fallback_share": fallback_share,
@@ -2777,7 +3024,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one pass of each main-path render with torch.profiler")
-    ap.add_argument("--upto", type=int, default=9, metavar="PHASE",
+    ap.add_argument("--upto", type=int, default=10, metavar="PHASE",
                     help="stop after this phase (2 or 3: build and parity only, for a "
                          "first look at a new kernel); prints no result line")
     ap.add_argument("--sweep-timing", action="store_true",
@@ -2801,7 +3048,7 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if rc == 0 and args.upto < 9:
+    if rc == 0 and args.upto < 10:
         print(f"chip_smoke: stopped after phase {args.upto}; no result", file=sys.stderr)
     return rc
 

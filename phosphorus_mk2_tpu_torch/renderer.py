@@ -23,10 +23,8 @@ same scene.
 from __future__ import annotations
 
 import hashlib
-import logging
 import math
 import os
-import time
 
 import numpy as np
 import torch
@@ -43,8 +41,7 @@ from phosphorus_mk2_tpu_torch.parallel.sharding import (
     make_wave_mesh,
     split_frame,
 )
-
-log = logging.getLogger(__name__)
+from phosphorus_mk2_tpu_torch.utils.log import Metrics, get_logger
 
 
 class Renderer:
@@ -137,18 +134,25 @@ class Renderer:
             self._save_checkpoint(sums, done)
 
     def render(self) -> dict:
-        """All passes; returns the final film (see ``passes``)."""
-        t0 = time.perf_counter()
+        """All passes; returns the final film (see ``passes``). With
+        ``Options.verbose`` each pass is logged to stderr and one JSON
+        ``render`` line (``utils.log.Metrics``: passes, spp, width,
+        height, mrays_per_s, wall_s) goes to stdout. Every pass's film is
+        copied to the host, so the wall time includes the device's work."""
+        log = get_logger("renderer")
+        m = Metrics("render")
         film = None
         for film, done in self.passes():
+            m.inc("passes")
             if self.options.verbose:
-                log.info("pass %d/%d spp", done, self.options.samples_per_pixel)
+                log.info(f"pass {done}/{self.options.samples_per_pixel} spp")
         if self.options.verbose and film is not None:
             o = self.options
             w, h = self.scene.camera.width, self.scene.camera.height
             rays = w * h * o.samples_per_pixel * o.path_depth * 2
-            secs = time.perf_counter() - t0
-            log.info("%s: %.6f Mrays/s", self.device, rays / max(secs, 1e-9) / 1e6)
+            m.set("spp", o.samples_per_pixel).set("width", w).set("height", h)
+            m.set("mrays_per_s", round(rays / max(m.elapsed(), 1e-9) / 1e6, 6))
+            m.emit()
         return film
 
     # --- checkpointing ------------------------------------------------
