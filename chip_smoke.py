@@ -187,7 +187,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      each > 0 with no error; (e) entry()'s forward step on the card against
      the CPU and dryrun_multichip(1); (f) utils.profiling.trace around one
      cornell_box pass writes a Chrome trace with kernel events. The calls of
-     (a)-(c), (e) and (f) are counted (the bench's process is not).
+     (a)-(c), (e) and (f) are counted (the bench's process is not);
+ 11. the oracle tracers and the segment-sum row gather (accel/traverse.py,
+     accel/block_traverse.py with accel/sort.py, accel/intersect.py
+     intersect_brute / occluded_brute, math/grad_gather.py): (a) per_ray,
+     block (sorted_trace) and brute, closest and any-hit, on 65,536 seeded
+     rays with phase 3's mixed tmax on cornell_box and sphere_in_box with a
+     BVH, and on the full-size terrain_scene's 256x256 pixel-centre rays,
+     against mt_closest / mt_anyhit: hit and occlusion equal, tri equal but
+     for counted exact ties (t bit-equal under the kernels' arithmetic, or
+     one packed-key bucket for brute) and edge ties (a shared edge, t
+     within 1e-6), t within 1e-5 (|t| + 0.01); ms a trace, rays/s, lockstep steps
+     and host syncs; (b) cornell_box 256x256 4 spp depth 4 with a BVH
+     through render_pass and make_tracer(kind="block") and "per_ray", each
+     film against the brute kernels' on >= 99.9% of the pixels, rays/s;
+     (c) gather_rows at cornell_box's shape (65,536 indices into 36 rows of
+     the hit rows' width: its pixel rays' hit triangles, and uniform) and
+     the BMW's (262,144 uniform into 887,604): the primal
+     bit-equal to table[idx], the segsum and scatter gradients within rtol
+     1e-5 / atol 1e-6 of table[idx]'s, two segsum backwards bit-equal, and
+     the three backwards timed with CUDA events. The timed kernel calls of
+     (a) and the brute film of (b) are counted.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -2913,6 +2933,265 @@ def entry_points_phase(pt, scenes, mt, front, wave, dev, phase5_films):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the oracle tracers and the segment-sum row gather
+# ---------------------------------------------------------------------------
+
+ORACLE_TERRAIN_RAYS = N_RAYS  # the terrain's 256x256 camera rays
+GATHER_REPS = 20
+
+
+def pair_t(data, p, d, tri):
+    """(t, valid) of each ray against its own triangle tri (N,), by the
+    arithmetic of the MT kernels (intersect.mt_intersect_soa: one rounding
+    an operation, in the kernels' order)."""
+    from phosphorus_mk2_tpu_torch.accel.intersect import mt_intersect_soa
+
+    f = data.faces[tri.clamp(min=0).long()].long()
+    v = data.vertices
+    a = v[f[:, 0]]
+    e0, e1 = v[f[:, 1]] - a, v[f[:, 2]] - a
+    col = lambda x: tuple(x[:, k : k + 1] for k in range(3))  # noqa: E731
+    t, _, _, valid = mt_intersect_soa(col(p), col(d), col(a), col(e0), col(e1))
+    return t[:, 0], valid[:, 0]
+
+
+def oracles(data):
+    """(name, closest(p, d), occluded(p, d, tmax), STATS or None, lane mask
+    of a packed-key tie) of each scene-level oracle tracer."""
+    from phosphorus_mk2_tpu_torch.accel import block_traverse, intersect, sort, traverse
+
+    chunk = intersect._chunk_of(data.num_tris, None)
+    return [
+        ("per_ray", lambda p, d: traverse.intersect_bvh(data, p, d),
+         lambda p, d, t: traverse.occluded_bvh(data, p, d, t), traverse.STATS, 0),
+        ("block (sorted)", lambda p, d: sort.sorted_trace(block_traverse.intersect_blocks,
+                                                          data, p, d, None),
+         lambda p, d, t: sort.sorted_trace(block_traverse.occluded_blocks, data, p, d, t),
+         block_traverse.STATS, 0),
+        ("brute", lambda p, d: intersect.intersect_brute(data, p, d),
+         lambda p, d, t: intersect.occluded_brute(data, p, d, t), None,
+         (1 << max(1, (chunk - 1).bit_length())) - 1),
+    ]
+
+
+def wall(fn, stats=None):
+    """fn() timed on the host clock (the lockstep loops sync every step),
+    and the steps and syncs it took."""
+    if stats is not None:
+        for k in stats:
+            stats[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, dict(stats) if stats is not None else {"steps": 0, "syncs": 0}
+
+
+def oracles_vs_kernels(mt, label, data, p, d, tmax, count):
+    """11a on one scene: each oracle tracer against mt_closest / mt_anyhit
+    over all the scene's triangles. hit and occlusion equal; tri equal
+    but for ties, counted: exact ties (both triangles' t bit-equal under
+    the kernels' arithmetic, or for the brute oracle in one packed-key
+    bucket) and edge ties (a ray through an edge that two triangles share:
+    both hit, their t within 1e-6 relative, and a slab test or the sum
+    order takes the other); t within 1e-5 (|t| + 0.01) where tri is equal
+    (rtol 1e-5, and atol 1e-7 for a t near 0, which comes out of a
+    cancelling dot product). The timed kernel calls are counted."""
+    n = p.shape[0]
+    table = mt.tri_table(data)
+    cols = mt.live_columns(table)
+    mt.mt_closest(table, p, d, cols=cols)  # warm-up
+    ((t, tri, _, _), ms_c, _), _ = count(lambda: wall(lambda: mt.mt_closest(table, p, d,
+                                                                            cols=cols)))
+    (oref, ms_o, _), _ = count(lambda: wall(lambda: mt.mt_anyhit(table, p, d, tmax, cols=cols)))
+    rows = {"kernels": {"closest_ms": ms_c * 1e3, "anyhit_ms": ms_o * 1e3,
+                        "hits": int((tri >= 0).sum()), "occluded": int(oref.sum())}}
+    print(f"{label}: {data.num_tris} tris, {n} rays: mt_closest {ms_c * 1e3:.4f} ms, mt_anyhit "
+          f"{ms_o * 1e3:.4f} ms; {int((tri >= 0).sum())} hits, {int(oref.sum())} occluded",
+          flush=True)
+    for name, closest, occluded, stats, lane_mask in oracles(data):
+        closest(p[:256], d[:256])  # warm-up: the first call of each eager kernel
+        occluded(p[:256], d[:256], tmax[:256])
+        got, sc, st_c = wall(lambda: closest(p, d), stats)
+        occ, so, st_o = wall(lambda: occluded(p, d, tmax), stats)
+        bad_hit = int((got["hit"] != (tri >= 0)).sum())
+        bad_occ = int((occ != oref).sum())
+        diff = (got["tri"] != tri) & (got["tri"] >= 0) & (tri >= 0)
+        (ta, va), (tb, _) = pair_t(data, p, d, got["tri"]), pair_t(data, p, d, tri)
+        bits = lambda x: x.view(torch.int32) & ~lane_mask  # noqa: E731
+        exact = diff & (bits(ta) == bits(tb))
+        edge = diff & ~exact & va & ((ta - tb).abs() <= 1e-6 * tb.abs())
+        ties = exact | edge
+        same = (got["tri"] == tri) & (tri >= 0)
+        # |dt| over 1e-5 |t| + 1e-7: t near 0 (an origin on a face) comes out of a
+        # cancelling dot product, with an absolute error of ~1e-8 whatever t is
+        rel = lambda a, b: float(((a - b).abs() / (b.abs() + 1e-2)).max())  # noqa: E731
+        t_err = rel(got["t"][same], t[same]) if bool(same.any()) else 0.0
+        tie_err = rel(got["t"][ties], ta[ties]) if bool(ties.any()) else 0.0
+        other = int((got["tri"] != tri).sum()) - int(ties.sum())
+        rows[name] = {"closest_ms": sc * 1e3, "anyhit_ms": so * 1e3,
+                      "closest_rays_per_s": n / sc, "anyhit_rays_per_s": n / so,
+                      "steps": [st_c["steps"], st_o["steps"]],
+                      "syncs": [st_c["syncs"], st_o["syncs"]],
+                      "exact_ties": int(exact.sum()), "edge_ties": int(edge.sum()),
+                      "t_err": t_err}
+        print(f"  {name}: closest {sc * 1e3:.3f} ms ({n / sc:.1f} rays/s, {st_c['steps']} steps, "
+              f"{st_c['syncs']} syncs), any-hit {so * 1e3:.3f} ms ({n / so:.1f} rays/s, "
+              f"{st_o['steps']} steps, {st_o['syncs']} syncs); hit differs on {bad_hit}, "
+              f"occlusion on {bad_occ}; tri differs on {int((got['tri'] != tri).sum())} rays: "
+              f"exact ties {int(exact.sum())}, edge ties {int(edge.sum())}, other {other}; max "
+              f"|dt| / (|t| + 0.01) {t_err:.3g} (ties: against their own triangle {tie_err:.3g})",
+              flush=True)
+        check(bad_hit == 0, f"{label} {name}: hit differs from mt_closest on {bad_hit} rays")
+        check(bad_occ == 0, f"{label} {name}: occlusion differs from mt_anyhit on {bad_occ} rays")
+        check(other == 0, f"{label} {name}: another triangle than mt_closest on {other} rays")
+        # cornell_box's blocks stand on its floor: coplanar triangles, tied
+        # wherever they overlap
+        check(int(ties.sum()) <= n // 20, f"{label} {name}: {int(ties.sum())} ties: too many")
+        check(max(t_err, tie_err) <= 1e-5, f"{label} {name}: t differs from the kernels' by "
+              f"{max(t_err, tie_err)} of (|t| + 0.01)")
+    return rows
+
+
+def oracle_films(pt, scenes, dev, count):
+    """11b: cornell_box 256x256, 4 spp, depth 4, with a BVH, through
+    render_pass and make_tracer(kind="block") and kind="per_ray", each
+    film against the brute kernels' (kind="brute", counted) on >= 99.9%
+    of the pixels."""
+    from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+    from phosphorus_mk2_tpu_torch.integrator.path import make_tracer, render_pass
+
+    w = h = 256
+    spp, depth = 4, 4
+    scene = scenes.cornell_box(w, h)
+    data = attach_bvh(scene.build(device=dev), builder="native")
+    cam = camera_to_params(scene.camera, dev)
+
+    def film(kind):
+        with torch.no_grad():
+            out = render_pass(data, cam, 0, 0, spp, width=w, height=h, max_depth=depth,
+                              tracer=make_tracer(data, kind=kind))
+        return out["color"].reshape(h, w, 3).cpu().numpy() / spp
+
+    film("brute")  # warm-up
+    (ref, secs, _), launches = count(lambda: wall(lambda: film("brute")))
+    check(np.isfinite(ref).all() and ref.mean() > 0, "cornell_box brute film not finite or black")
+    rays = w * h * spp * depth * 2
+    out = {"brute": {"s": secs, "rays_per_s": rays / secs}}
+    for kind in ("block", "per_ray"):
+        img, secs, _ = wall(lambda: film(kind))
+        close = float(np.isclose(img, ref, rtol=1e-5, atol=1e-7).all(axis=-1).mean())
+        mx = float(np.abs(img - ref).max())
+        out[kind] = {"s": secs, "rays_per_s": rays / secs, "pixels_equal": close,
+                     "max_abs_diff": mx}
+        print(f"cornell_box 256x256 4 spp depth 4 kind={kind}: {secs:.3f} s, "
+              f"{rays / secs:.1f} rays/s; pixels within rtol 1e-5 of the brute film {close:.6f}, "
+              f"max |diff| {mx:.3g}", flush=True)
+        check(close >= 0.999, f"kind={kind}: only {close} of the pixels match the brute film")
+    print(f"cornell_box 256x256 4 spp depth 4 kind=brute: {out['brute']['s']:.3f} s, "
+          f"{out['brute']['rays_per_s']:.1f} rays/s; launches {launches}", flush=True)
+    out["launches"] = launches
+    return out
+
+
+def cuda_ms(fn, reps=GATHER_REPS):
+    """The median of reps timings of fn() with CUDA events, in ms."""
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def gather_rows_on_card(dev, width, hit_ids):
+    """11c: gather_rows at cornell_box's shape, 65,536 indices into 36
+    rows of the hit rows' width: the hit triangles of its 256x256 pixel
+    rays (``hit_ids``, misses at row 0 as the integrator clamps them: a
+    few rows take most indices) and uniform indices; and at the BMW's,
+    262,144 uniform indices into 887,604 rows. The primal bit-equal to
+    table[idx], both backwards within the CPU tests' rtol 1e-5 / atol
+    1e-6 of table[idx]'s, two segsum backwards bit-equal; then each
+    backward timed with CUDA events beside PyTorch's index backward.
+    Nothing is wired, and nothing is claimed."""
+    from phosphorus_mk2_tpu_torch.math.grad_gather import gather_rows
+
+    out = {}
+    cases = (("cornell_box hit ids", 36, hit_ids), ("cornell_box uniform", 36, N_RAYS),
+             ("bmw uniform", BMW_TRIS, 4 * N_RAYS))
+    for label, rows, idx in cases:
+        g = torch.Generator(device=dev).manual_seed(rows)
+        table = torch.rand((rows, width), device=dev, generator=g).requires_grad_()
+        if isinstance(idx, int):
+            idx = torch.randint(0, rows, (idx,), device=dev, generator=g)
+        n = idx.shape[0]
+        ct = torch.rand((n, width), device=dev, generator=g)
+        fwd = {"segsum": gather_rows(table, idx, "segsum"),
+               "scatter": gather_rows(table, idx, "scatter"), "index": table[idx]}
+        check(torch.equal(fwd["segsum"], fwd["index"]) and torch.equal(fwd["scatter"],
+                                                                         fwd["index"]),
+              f"gather_rows {label}: the primal differs from table[idx]")
+        grad = {k: torch.autograd.grad(v, table, ct, retain_graph=True)[0] for k, v in fwd.items()}
+        again = torch.autograd.grad(fwd["segsum"], table, ct, retain_graph=True)[0]
+        check(torch.equal(grad["segsum"], again), f"gather_rows {label}: two segsum backwards "
+              "differ")
+        for k in ("segsum", "scatter"):
+            check(torch.allclose(grad[k], grad["index"], rtol=1e-5, atol=1e-6),
+                  f"gather_rows {label}: the {k} gradient is off by "
+                  f"{float((grad[k] - grad['index']).abs().max())}")
+        ms = {k: cuda_ms(lambda v=v: torch.autograd.grad(v, table, ct, retain_graph=True))
+              for k, v in fwd.items()}
+        counts = torch.bincount(idx, minlength=rows)
+        dup = 1.0 - int((counts > 0).sum()) / n
+        out[label] = {"rows": rows, "indices": n, "width": width, "duplicate_share": dup,
+                      "largest_run": int(counts.max()), "backward_ms": ms}
+        print(f"gather_rows {label}: {n} indices into {rows} rows of {width} floats "
+              f"(duplicate share {dup:.4f}, most on one row {int(counts.max())}); primal "
+              f"bit-equal, segsum bit-stable; backward ms (median of {GATHER_REPS}): segsum "
+              f"{ms['segsum']:.5f}, scatter {ms['scatter']:.5f}, table[idx] {ms['index']:.5f}",
+              flush=True)
+    return out
+
+
+def oracle_phase(pt, scenes, mt, front, wave, terrain, terrain_data, dev, smi):
+    """Phase 11. Its main path is the timed brute-kernel calls of 11a and
+    the brute film of 11b, each counted from 0 just before and read just
+    after; the oracle tracers run no hand kernel."""
+    from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
+    from phosphorus_mk2_tpu_torch.integrator.path import make_scene_tables
+
+    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
+    count = launch_counter((mt, front, wave), totals)
+    summary = {"tracers": {}}
+    for i, name in enumerate(("cornell_box", "sphere_in_box")):
+        data = attach_bvh(getattr(scenes, name)(64, 64).build(device=dev), builder="native")
+        p, d, _ = random_rays(40 + i, N_RAYS, dev)
+        summary["tracers"][name] = oracles_vs_kernels(mt, name, data, p, d,
+                                                      mixed_limits(50 + i, N_RAYS, dev), count)
+    p, d = pixel_rays(terrain, dev)
+    p, d = p[:ORACLE_TERRAIN_RAYS].contiguous(), d[:ORACLE_TERRAIN_RAYS].contiguous()
+    summary["tracers"]["terrain_scene"] = oracles_vs_kernels(
+        mt, "terrain_scene", terrain_data, p, d, mixed_limits(52, p.shape[0], dev), count)
+    summary["films"] = oracle_films(pt, scenes, dev, count)
+    box = scenes.cornell_box(256, 256)
+    box_data = box.build(device=dev)
+    width = make_scene_tables(box_data)["hit_f"].shape[1]
+    hit_ids = mt.mt_closest(mt.tri_table(box_data), *pixel_rays(box, dev))[1].clamp(min=0).long()
+    summary["gather_rows"] = gather_rows_on_card(dev, width, hit_ids)
+    for k in ("mt_closest", "mt_anyhit"):
+        check(totals[k] > 0, f"phase 11: {k} was not launched")
+    summary["launches_counted"] = totals
+    summary["device"] = smi
+    print(json.dumps({"oracles": summary}), flush=True)
+    return totals
+
+
 def run(profile: bool, upto: int) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3004,9 +3283,14 @@ def run(profile: bool, upto: int) -> int:
 
     phase("10 CLI, bench and entry points")
     entry_launches = entry_points_phase(pt, scenes, mt, front, wave, dev, phase5_films)
+    if upto < 11:
+        return 0
+
+    phase("11 oracle tracers and gather_rows")
+    oracle_launches = oracle_phase(pt, scenes, mt, front, wave, terrain, terrain_data, dev, smi)
     for row in rows:  # the kernels line counts the main path of every phase
         row["launches"] += (grad_launches[row["name"]] + io_launches[row["name"]]
-                            + entry_launches[row["name"]])
+                            + entry_launches[row["name"]] + oracle_launches[row["name"]])
 
     print(json.dumps({"tracer_vs_oracle": {"exact_t_ties": ties, "rays": N_RAYS,
                                            "fallback_share": fallback_share,
@@ -3024,7 +3308,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one pass of each main-path render with torch.profiler")
-    ap.add_argument("--upto", type=int, default=10, metavar="PHASE",
+    ap.add_argument("--upto", type=int, default=11, metavar="PHASE",
                     help="stop after this phase (2 or 3: build and parity only, for a "
                          "first look at a new kernel); prints no result line")
     ap.add_argument("--sweep-timing", action="store_true",
@@ -3048,7 +3332,7 @@ def main() -> int:
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if rc == 0 and args.upto < 10:
+    if rc == 0 and args.upto < 11:
         print(f"chip_smoke: stopped after phase {args.upto}; no result", file=sys.stderr)
     return rc
 

@@ -38,7 +38,7 @@ from phosphorus_mk2_tpu_torch.accel.build import (
     compile_shared,
     find_nvcc,
 )
-from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, mt_intersect_soa
+from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, mt_intersect_soa, ray_soa
 
 TRI_TILE = 512       # the table's column padding (the Pallas kernels' chunk)
 RAY_CHUNK = 8192     # rays per step of the plain versions (bounds their (N, C) temporaries)
@@ -184,10 +184,6 @@ def _cols_soa(table, c0, c1):
     return a, e0, e1, table[9, c0:c1].view(torch.int32)
 
 
-def _ray_soa(p, d):
-    return (p[:, 0:1], p[:, 1:2], p[:, 2:3]), (d[:, 0:1], d[:, 1:2], d[:, 2:3])
-
-
 # ---------------------------------------------------------------------------
 # closest hit
 # ---------------------------------------------------------------------------
@@ -238,7 +234,7 @@ def mt_closest_plain(table, p, d, splits: int = 1, cols: int | None = None):
     key = torch.empty((n,), dtype=torch.int64, device=p.device)
     for r0 in range(0, n, RAY_CHUNK):
         r1 = min(r0 + RAY_CHUNK, n)
-        rp, rd = _ray_soa(p[r0:r1], d[r0:r1])
+        rp, rd = ray_soa(p[r0:r1], d[r0:r1])
         key[r0:r1] = NO_HIT
         for c0 in range(0, end, per):
             key[r0:r1] = torch.minimum(key[r0:r1], _closest_key(table, rp, rd, c0,
@@ -246,7 +242,7 @@ def mt_closest_plain(table, p, d, splits: int = 1, cols: int | None = None):
     hit = key != NO_HIT
     col = torch.where(hit, key & 0xFFFFFFFF, 0)
     cols = table[:, col].T  # (N, 10): the winning column of every ray
-    rp, rd = _ray_soa(p, d)
+    rp, rd = ray_soa(p, d)
     _, u, v, _ = mt_intersect_soa(rp, rd, (cols[:, 0:1], cols[:, 1:2], cols[:, 2:3]),
                                   (cols[:, 3:4], cols[:, 4:5], cols[:, 5:6]),
                                   (cols[:, 6:7], cols[:, 7:8], cols[:, 8:9]))
@@ -310,7 +306,7 @@ def mt_anyhit_plain(table, p, d, tmax, cols: int | None = None):
         for base in range(0, end, TRI_TILE):
             if live.numel() == 0:
                 break
-            rp, rd = _ray_soa(p[live], d[live])
+            rp, rd = ray_soa(p[live], d[live])
             a, e0, e1, ids = _cols_soa(table, base, min(base + TRI_TILE, end))
             t, _, _, valid = mt_intersect_soa(rp, rd, a, e0, e1)
             hit = (valid & (t < tmax[live, None]) & (ids >= 0)[None, :]).any(dim=1)

@@ -55,6 +55,17 @@ def build() -> ctypes.CDLL:
         return lib
 
 
+def available() -> bool:
+    """Whether the native builder can be used here: it is built (once)
+    and loaded. A failure to build reads as False, as in the JAX package;
+    ``build`` raises it."""
+    try:
+        build()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def build_bvh_native(vertices: np.ndarray, faces: np.ndarray) -> dict:
     """Native build; returns the same dict as ``bvh_builder.build_bvh``."""
     lib = build()

@@ -49,6 +49,7 @@ from phosphorus_mk2_tpu_torch.math.sampling import cosine_hemisphere
 from phosphorus_mk2_tpu_torch.math.vec import (
     clip,
     dot,
+    in_same_hemisphere,
     maximum,
     minimum,
     normalize,
@@ -317,7 +318,7 @@ def ct_refract_pdf(ax, ay, eta_param, n_frame, wi, wo):
     dwh_dwi = (eta * eta * dot(lo, wh)).abs() * _safe_div(1.0, sqrt_denom * sqrt_denom)
     pdf = ggx_D(ax, ay, wh) * tsf.cos_theta(wh) * dwh_dwi
     # world-space same-hemisphere rejection as in the reference
-    return torch.where(dot(wi, wo) > 0.0, 0.0, pdf)
+    return torch.where(in_same_hemisphere(wi, wo), 0.0, pdf)
 
 
 def oren_nayar_f(a, b, n_frame, wi, wo):

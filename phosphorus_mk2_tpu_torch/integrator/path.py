@@ -40,11 +40,14 @@ import math
 import torch
 
 from phosphorus_mk2_tpu_torch.accel import mt
+from phosphorus_mk2_tpu_torch.accel.block_traverse import intersect_blocks, occluded_blocks
 from phosphorus_mk2_tpu_torch.accel.cluster_traverse import (
     intersect_clusters,
     occluded_clusters,
 )
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, reintersect
+from phosphorus_mk2_tpu_torch.accel.sort import sorted_trace
+from phosphorus_mk2_tpu_torch.accel.traverse import intersect_bvh, occluded_bvh
 from phosphorus_mk2_tpu_torch.bsdf.bsdf import (
     apply_fresnel,
     apply_textures,
@@ -97,10 +100,14 @@ def make_tracer(scene, use_bvh: bool = True, use_pallas: bool = False,
     kind: "auto" (the cluster tracer when a BVH is attached and the scene
     has more than 1024 triangles, else brute force), "cluster" (the
     gather-wave cluster tracer of accel/cluster_traverse.py; needs an
-    attached BVH), "brute" (dense all pairs: oracle and small scenes).
-    On a CUDA scene the brute tracer runs the hand kernels of accel/mt.py
-    whatever ``use_pallas`` says; on a CPU scene, their plain versions.
-    The JAX package's oracle kinds "block" and "per_ray" are not ported.
+    attached BVH), "block" (shared-stack blocks of accel/block_traverse.py
+    over the wavefront sorted by accel/sort.py; needs a BVH), "per_ray"
+    (the per-ray stacks of accel/traverse.py, an oracle; needs a BVH),
+    "brute" (dense all pairs: oracle and small scenes). On a CUDA scene
+    the brute tracer runs the hand kernels of accel/mt.py whatever
+    ``use_pallas`` says; on a CPU scene, their plain versions. "block"
+    and "per_ray" run eager PyTorch on the scene's device, and
+    ``tracer_tune`` and ``plain`` do not apply to them.
 
     tracer_tune: cluster-tracer tunables (see cluster_traverse._trace);
     ignored by the brute tracer. A "shadow" sub-dict overrides keys for
@@ -116,14 +123,19 @@ def make_tracer(scene, use_bvh: bool = True, use_pallas: bool = False,
     has_bvh = use_bvh and scene.bvh is not None
     if kind == "auto":
         kind = "cluster" if has_bvh and scene.num_tris > BRUTE_MAX_TRIS else "brute"
-    if kind in ("block", "per_ray"):
-        raise NotImplementedError(
-            f"tracer kind {kind!r} is not ported (see ROADMAP.md); the brute "
-            "tracer is the port's oracle"
-        )
+    if kind in ("block", "per_ray", "cluster") and not has_bvh:
+        raise ValueError(f"tracer kind {kind!r} requires an attached BVH")
+    if kind == "block":
+        def closest(p, d, tmax=None):
+            return sorted_trace(intersect_blocks, scene, p, d, tmax)
+
+        def occluded(p, d, tmax):
+            return sorted_trace(occluded_blocks, scene, p, d, tmax)
+
+        return closest, occluded
+    if kind == "per_ray":
+        return functools.partial(intersect_bvh, scene), functools.partial(occluded_bvh, scene)
     if kind == "cluster":
-        if not has_bvh:
-            raise ValueError(f"tracer kind {kind!r} requires an attached BVH")
         tune = dict(tracer_tune or {})
         if plain:
             tune["plain"] = True

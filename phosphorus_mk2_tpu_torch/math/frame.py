@@ -25,6 +25,15 @@ def make_frame(n: torch.Tensor):
     return a, n, c
 
 
+def make_frame_with_tangent(t: torch.Tensor, n: torch.Tensor):
+    """Frame from an explicit tangent (reference orthogonal_base_t(tangent,
+    n)): (normalize(t x n), normalize(n), t). The reference calls
+    ``invertible_base_t(n, t)`` from ``mesh_t::shading_parameters``
+    (src/mesh.cpp:232), normal first; this keeps the constructor's
+    (tangent, normal) order, as the JAX package does."""
+    return normalize(cross(t, n)), normalize(n), t
+
+
 def to_world(frame, v: torch.Tensor) -> torch.Tensor:
     a, b, c = frame
     return v[..., 0:1] * a + v[..., 1:2] * b + v[..., 2:3] * c

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from phosphorus_mk2_tpu_torch.device import resolve_device
+from phosphorus_mk2_tpu_torch.math import rng
 from phosphorus_mk2_tpu_torch.math.vec import maximum, minimum
 
 UNIFORM_DISC_PDF = 1.0 / math.pi
@@ -60,6 +62,32 @@ def triangle_sample(u: torch.Tensor) -> torch.Tensor:
     (reference triangle_t::sample, src/mesh.cpp:318-324)."""
     x = torch.sqrt(u[..., 0])
     return torch.stack([1.0 - x, u[..., 1] * x], dim=-1)
+
+
+STRATIFIED_PURPOSE = 3  # the RNG purpose word of stratified_2d (0-2: camera, light, BSDF)
+
+
+def stratify(u: torch.Tensor, n: int) -> torch.Tensor:
+    """(n*n, 2) points, cell (i, j) of an n x n grid (row-major, i the
+    first coordinate) offset by its row of u (n*n, 2) in [0, 1) scaled to
+    the cell: the JAX package's ``ij * step + jitter``."""
+    step = 1.0 / n
+    i, j = torch.meshgrid(torch.arange(n, device=u.device), torch.arange(n, device=u.device),
+                          indexing="ij")
+    ij = torch.stack([i, j], dim=-1).reshape(n * n, 2)
+    return ij * step + u * step
+
+
+def stratified_2d(seed: int, n: int, device="cuda") -> torch.Tensor:
+    """(n*n, 2) stratified jittered samples over the unit square
+    (reference sample::stratified_2d, src/math/sampling.hpp:65-78). The
+    jitter is the port's counter-based RNG under an integer seed, where
+    the JAX package draws it from a ``jax.random`` key: the layout and the
+    strata are the same, the random bits are not."""
+    dev = resolve_device(device)
+    cells = torch.arange(n * n, dtype=torch.int64, device=dev)
+    u = rng.pixel_uniforms4(seed, cells, 0, 0, STRATIFIED_PURPOSE)[:, :2]
+    return stratify(u, n)
 
 
 def remap_index_sample(u: torch.Tensor, count):

@@ -52,6 +52,10 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def length(a: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(maximum(dot(a, a), 0.0))
+
+
 def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalize: a / |a| with a guard against |a| = 0."""
     return a * torch.rsqrt(maximum(dot_keep(a, a), eps))
@@ -79,6 +83,11 @@ def offset(p: torch.Tensor, n: torch.Tensor, invert=None) -> torch.Tensor:
         return p + n * RAY_EPSILON
     sign = torch.where(invert, -RAY_EPSILON, RAY_EPSILON)
     return p + n * sign[..., None]
+
+
+def in_same_hemisphere(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """World-space hemisphere test (reference src/math/vector.hpp:10)."""
+    return dot(a, b) > 0.0
 
 
 def luminance(c: torch.Tensor) -> torch.Tensor:

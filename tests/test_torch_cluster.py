@@ -289,9 +289,21 @@ def test_make_tracer_rules(scene_pair):
         make_tracer(bare, kind="cluster")
     with pytest.raises(ValueError, match="requires an attached BVH"):
         make_tracer(td, use_bvh=False, kind="cluster")
+    # the oracle kinds route to the ported tracers, and need a BVH too
+    from phosphorus_mk2_tpu_torch.accel import block_traverse, sort, traverse
+
+    closest, occluded = make_tracer(td, kind="per_ray")
+    assert fn(closest) is traverse.intersect_bvh and fn(occluded) is traverse.occluded_bvh
+    closest, occluded = make_tracer(td, kind="block")
+    ref = sort.sorted_trace(block_traverse.intersect_blocks, td, p, d, tmax)
+    assert all(torch.equal(closest(p, d, tmax)[k], ref[k]) for k in ref)
+    assert torch.equal(occluded(p, d, tmax),
+                       sort.sorted_trace(block_traverse.occluded_blocks, td, p, d, tmax))
     for kind in ("block", "per_ray"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_tracer(td, kind=kind)
+        with pytest.raises(ValueError, match="requires an attached BVH"):
+            make_tracer(bare, kind=kind)
+        with pytest.raises(ValueError, match="requires an attached BVH"):
+            make_tracer(td, use_bvh=False, kind=kind)
     with pytest.raises(ValueError, match="unknown tracer kind"):
         make_tracer(td, kind="octree")
     # tracer_tune, and its shadow sub-dict for the any-hit trace only

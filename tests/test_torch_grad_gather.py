@@ -1,0 +1,121 @@
+"""The port's gather_rows (math/grad_gather.py) against the JAX
+package's, the cases of tests/test_grad_gather.py on the same inputs.
+
+Tolerances, and why:
+  * the primal: equal bit for bit to table[idx] (it is table[idx]);
+  * gradients: rtol 1e-5, atol 1e-6 of jax.grad of the JAX gather_rows.
+    The sums are reassociated (a sort, then segment sums), as they are
+    between JAX's scatter-add and segment_sum. With unique indices there
+    is no sum, and the gradients are equal exactly; untouched rows get
+    exactly 0;
+  * two segsum backwards of the same inputs: equal bit for bit (no
+    atomics).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from phosphorus_mk2_tpu.math.grad_gather import gather_rows as j_gather_rows
+from phosphorus_mk2_tpu_torch.math.grad_gather import gather_rows
+
+# the tier-1 run puts several pytest workers on few cores and the tensors
+# here are small: one intra-op thread per worker avoids oversubscription
+torch.set_num_threads(1)
+
+
+def _grad(table, idx, w, transpose):
+    t = torch.from_numpy(table).requires_grad_()
+    (gather_rows(t, torch.from_numpy(idx), transpose) * torch.from_numpy(w)).sum().backward()
+    return t.grad.numpy()
+
+
+def _jgrad(table, idx, w, transpose):
+    return np.asarray(jax.grad(
+        lambda t: (j_gather_rows(t, jnp.asarray(idx), transpose) * jnp.asarray(w)).sum()
+    )(jnp.asarray(table)))
+
+
+@pytest.mark.parametrize("transpose", ["segsum", "scatter"])
+def test_primal_and_grad_match_jax(transpose):
+    rng = np.random.default_rng(3)
+    F, W, N = 50, 7, 400
+    table = rng.random((F, W)).astype(np.float32)
+    idx = rng.integers(0, F - 10, size=(N,)).astype(np.int32)  # the last 10 rows untouched
+    w = rng.random((N, W)).astype(np.float32)
+    out = gather_rows(torch.from_numpy(table), torch.from_numpy(idx), transpose)
+    np.testing.assert_array_equal(out.numpy(), table[idx])
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(j_gather_rows(jnp.asarray(table), jnp.asarray(idx),
+                                                           transpose)))
+    g = _grad(table, idx, w, transpose)
+    np.testing.assert_allclose(g, _jgrad(table, idx, w, transpose), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(g, _jgrad(table, idx, w, "scatter"), rtol=1e-5, atol=1e-6)
+    touched = np.zeros(F, bool)
+    touched[idx] = True
+    assert (g[~touched] == 0).all() and (~touched).any()
+
+
+def test_unique_indices_exact():
+    rng = np.random.default_rng(4)
+    F, W = 64, 3
+    table = rng.random((F, W)).astype(np.float32)
+    idx = rng.permutation(F)[:32].astype(np.int32)
+    w = rng.random((32, W)).astype(np.float32)
+    g = _grad(table, idx, w, "segsum")
+    np.testing.assert_array_equal(g, _jgrad(table, idx, w, "segsum"))
+    np.testing.assert_array_equal(g, _grad(table, idx, w, "scatter"))
+
+
+def test_scatter_mode_passthrough():
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.random((10, 4)).astype(np.float32)).requires_grad_()
+    idx = torch.tensor([1, 1, 3], dtype=torch.int32)
+    gather_rows(table, idx, "scatter").sum().backward()
+    assert table.grad[1, 0] == 2.0 and table.grad[3, 0] == 1.0 and table.grad[0, 0] == 0.0
+    with pytest.raises(ValueError, match="unknown transpose"):
+        gather_rows(table, idx, "sorted")
+
+
+def test_reuse_across_a_loop_of_steps():
+    """The JAX test's scan: one table gathered at three index sets, the
+    gradient summed over the steps."""
+    rng = np.random.default_rng(6)
+    F, W, N = 20, 5, 64
+    table = rng.random((F, W)).astype(np.float32)
+    idx = rng.integers(0, F, size=(3, N)).astype(np.int32)
+    t = torch.from_numpy(table).requires_grad_()
+    sum(gather_rows(t, torch.from_numpy(i)).sum() for i in idx).backward()
+
+    @jax.jit
+    def loss(tab):
+        def body(acc, i):
+            return acc + j_gather_rows(tab, i).sum(), None
+        out, _ = jax.lax.scan(body, 0.0, jnp.asarray(idx))
+        return out
+
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(jax.grad(loss)(jnp.asarray(table))),
+                               rtol=1e-6)
+
+
+def test_segsum_backward_is_deterministic():
+    rng = np.random.default_rng(7)
+    F, W, N = 36, 36, 65536  # cornell_box's hit rows: many indices a row
+    table = rng.random((F, W)).astype(np.float32)
+    idx = rng.integers(0, F, size=(N,)).astype(np.int32)
+    w = rng.standard_normal((N, W)).astype(np.float32)
+    g1 = _grad(table, idx, w, "segsum")
+    g2 = _grad(table, idx, w, "segsum")
+    np.testing.assert_array_equal(g1, g2)
+    np.testing.assert_allclose(g1, _grad(table, idx, w, "scatter"), rtol=1e-4, atol=1e-4)
+
+
+def test_empty_indices_and_half_cotangents():
+    table = torch.ones((5, 2), requires_grad=True)
+    gather_rows(table, torch.zeros((0,), dtype=torch.int64)).sum().backward()
+    assert torch.equal(table.grad, torch.zeros((5, 2)))
+    half = torch.ones((5, 2), dtype=torch.float16, requires_grad=True)
+    out = gather_rows(half, torch.tensor([0, 0, 4]))
+    out.sum().backward()
+    assert half.grad.dtype == torch.float16 and half.grad[0, 0] == 2.0
