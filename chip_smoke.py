@@ -9,6 +9,9 @@
                                      # and of a gradient step's forward
                                      # and backward)
     python3 chip_smoke.py --upto 3   # stop after phase 3 (no result line)
+    python3 chip_smoke.py --only-tunables
+                                     # phases 1-3, then phase 12 alone (no
+                                     # result line)
     python3 chip_smoke.py --upto 5 --package DIR
                                      # phases 1-5 of the port in DIR (another
                                      # checkout): its main path timed
@@ -122,7 +125,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      operations bound and its issue floor (the loop's instructions a
      (ray, row) pair x pairs over 4 warp-instructions a clock on every
      SM), both over the table's real triangles, not its pads; the floor
-     over every lane of every row beside it;
+     over every lane of every row beside it; beside each wave_mt shape its
+     bf16-row instance, and both instances over the rays in dedup_order
+     (the sort timed apart), and beside each wave_sweep shape its bf16-row
+     instance, each with 2,304-byte rows in its bytes bound, its own
+     instructions in its issue floor and its plain version's time;
   8. gradients and inverse rendering (integrator/path.py render_pass with
      gradients, trainable=, sorted_dispatch=; optim.InverseRenderer),
      every tracer call primal: (1) gradients of color.sum() with respect
@@ -207,7 +214,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      bit-equal to table[idx], the segsum and scatter gradients within rtol
      1e-5 / atol 1e-6 of table[idx]'s, two segsum backwards bit-equal, and
      the three backwards timed with CUDA events. The timed kernel calls of
-     (a) and the brute film of (b) are counted.
+     (a) and the brute film of (b) are counted;
+ 12. the cluster tracer's four tunables (slab_bf16, front_levels=3,
+     wave_dedup / dedup_d, rows_bf16) on the BMW asset (bench.load_bmw:
+     887,604 triangles, K 10,987, K2 687, K3 43): (a) the new kernel
+     instances against their plain versions, bit for bit (t, cluster,
+     lane): wave_mt on the bf16 rows on the terrain's first and eighth
+     wave of 65,536 rays and the BMW's first and second of 131,072, at the
+     plan's gate and every gate forced (and wave_mt_plain's gate= walk);
+     wave_mt over dedup_order's rays against no order with both row
+     types, with the rows it fetches either way; the bf16 wave_sweep at
+     8 and 16 rays (a warp a tile) and 448 and 2,048 (rows staged) on the
+     terrain's 5,803 clusters, beside wave_sweep_plain(plan=); (b) the
+     BMW's 131,072 pixel-centre rays (bmw_live's shape), closest hit and any hit with
+     shadow-ray limits, under slab_bf16 (sc_topk auto and extract),
+     front_levels 3, wave_dedup gather and onehot, the exact ones
+     together, rows_bf16, and rows_bf16 with wave_dedup: the exact ones
+     equal to the default trace but for counted exact-t and edge ties,
+     rows_bf16's hit agreement > 0.99, its same-triangle share, median t
+     error and occlusion agreement printed beside JAX's bounds
+     (tests/test_front_table.py:118-147), its traces with the kernels
+     equal to those with plain=True; ms a trace in turns
+     with the default, waves and host syncs a trace; the rows wave_mt
+     fetches in a trace with and without dedup_order (the dedup factor
+     on this card); the front table's ms at front_levels 2 and 3; (c)
+     the BMW at bmw_fwd's shape (512x512, 4 spp, depth 4, render_pass):
+     the exact tunables together equal to the default film on >= 99.9%
+     of the pixels, rows_bf16 with the kernels equal to rows_bf16 with
+     plain=True at rtol 1e-5, rays/s of each and the rows_bf16 film's
+     mean against the exact film's. The timed traces of (b) and the
+     kernel films of (c) are counted, and every new instance must launch.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -1585,17 +1621,23 @@ def loop_counts(sass, closest_rays, warp_tile, staged_tile):
         if m and name is not None:
             funcs[name].append((int(m.group(1), 16), m.group(2)))
     out = {}
-    for kname, pattern, tests, pairs in (
-        ("mt_closest_kernel", "mt_closest_kernel", 4 * closest_rays, None),
-        ("mt_anyhit_kernel", "mt_anyhit_kernel", 4, None),
-        ("wave_mt_kernel", "wave_mt_kernel", 4, None),
-        # a warp a tile of r rays: r (ray, row) pairs a step of the warp;
-        # rows staged: 4 triangles a thread, one pair a step of a warp
-        (f"wave_sweep_kernel<{warp_tile}>", "wave_sweep_warp_kernel", 4 * warp_tile,
-         warp_tile),
-        (f"wave_sweep_kernel<{staged_tile}>", "wave_sweep_staged_kernel", 4, 1),
-    ):
-        ins = next((v for k, v in funcs.items() if pattern in k), [])
+    kernels = [
+        ("mt_closest_kernel", "mt_closest_kernel", None, 4 * closest_rays, None),
+        ("mt_anyhit_kernel", "mt_anyhit_kernel", None, 4, None),
+    ]
+    # the wave kernels, one instance a row type (float and bf16)
+    for suffix, row_type in (("", "float"), (" bf16", "bf16")):
+        kernels += [
+            ("wave_mt_kernel" + suffix, "wave_mt_kernel", row_type, 4, None),
+            # a warp a tile of r rays: r (ray, row) pairs a step of the warp;
+            # rows staged: 4 triangles a thread, one pair a step of a warp
+            (f"wave_sweep_kernel<{warp_tile}>" + suffix, "wave_sweep_warp_kernel", row_type,
+             4 * warp_tile, warp_tile),
+            (f"wave_sweep_kernel<{staged_tile}>" + suffix, "wave_sweep_staged_kernel", row_type,
+             4, 1),
+        ]
+    for kname, pattern, row_type, tests, pairs in kernels:
+        ins = next((v for k, v in funcs.items() if instance_of(k, pattern, row_type)), [])
         loops = []
         for addr, text in ins:  # a loop: a branch back to a lower address
             m = re.search(r"BRA\S*\s+(?:\S+,\s*)?(0x[0-9a-f]+)", text)
@@ -1614,6 +1656,20 @@ def loop_counts(sass, closest_rays, warp_tile, staged_tile):
         if pairs:
             out[kname]["per_pair"] = len(body) / pairs
     return out
+
+
+def instance_of(fname, base, row_type):
+    """Whether the (mangled or demangled) function name is kernel ``base``,
+    and for a template on the row type its ``row_type`` ("float" or
+    "bf16") instance."""
+    if base not in fname:
+        return False
+    if row_type is None:
+        return True
+    after = fname[fname.index(base) + len(base):]
+    if row_type == "bf16":
+        return after.startswith(("I13__nv_bfloat16", "<__nv_bfloat16"))
+    return after.startswith(("If", "<float"))
 
 
 def sm_clock_under(fn, ms):
@@ -1776,7 +1832,7 @@ def front_timing(front, cases, launches, errs):
 
 
 def wave_timing(wave, ct, probe, scenes, case, multi, launches, errs, dev, loop=None,
-                clock=None):
+                clock=None, loop_bf16=None):
     """Phase 7, wave kernels. Bounds from this run's inputs.
 
     row_gather: the probe's geometry; bytes = each DISTINCT row read once
@@ -1791,7 +1847,12 @@ def wave_timing(wave, ct, probe, scenes, case, multi, launches, errs, dev, loop=
     wave_mt's issue floor, the instructions of its loop over a group's
     rays (``loop``, from phase 2) x live pairs over 4 warp-instructions a
     clock on every SM at ``clock`` MHz. wave_sweep: 8 rays x every
-    cluster; bytes = the table once; operations = pairs x 128 x 46."""
+    cluster; bytes = the table once; operations = pairs x 128 x 46.
+    At each wave, beside wave_mt: its bf16 instance on the bf16 rows
+    (2,304 bytes a row in the bounds; issue floor from ``loop_bf16``), and
+    both instances over the rays in ``dedup_order`` (the tracer's
+    wave_dedup on the card; the order's sort timed apart), each with its
+    plain version's time."""
     launch_ms = probe.launch_ms
     rows = []
     # ---- row_gather: cold (the L2 emptied before each launch, what the
@@ -1872,12 +1933,48 @@ def wave_timing(wave, ct, probe, scenes, case, multi, launches, errs, dev, loop=
             hbm_ms = (pairs * row_b + rest) / H100_BYTES * 1e3
             l2_ms = (distinct * row_b + rest) / H100_BYTES * 1e3
             group_ms = (groups * row_b + rest) / H100_BYTES * 1e3
+            # the bf16 rows and the dedup order, each against its plain version
+            order = wave.dedup_order(col_c[:, 0], live)
+            ms_order = launch_ms(lambda: wave.dedup_order(col_c[:, 0], live))
+            variants, lines = {}, []
+            for key, tbl, od, lp in (
+                ("wave_mt_bf16", data.bvh["cluster_rows_bf16"], None, loop_bf16),
+                ("wave_mt_ordered", table, order, loop),
+                ("wave_mt_bf16_ordered", data.bvh["cluster_rows_bf16"], order, loop_bf16),
+            ):
+                gv = wave.gate_plan(n, *wave.resident(wave.build(), dev, tbl.dtype))["g"]
+                groups_v = wave.wave_groups(col_t, col_c, saved[0], saved[1], False,
+                                            tbl.shape[0], gv, order=od)
+                ms_v = launch_ms(lambda tbl=tbl, od=od: wave.wave_mt(
+                    p, d, tbl, col_t, col_c, False, *state, order=od), before=reset)
+                ms_vp = launch_ms(lambda tbl=tbl, od=od: wave.wave_mt_plain(
+                    p, d, tbl, col_t, col_c, False, *state, order=od), reps=3, before=reset)
+                rb = tbl[0].numel() * tbl.element_size()
+                ops_v = pairs * 128 * MT_OPS_PER_TEST / H100_FP32_OPS * 1e3
+                l2_v = (distinct * rb + rest) / H100_BYTES * 1e3
+                floor_v = (lp["loop_instructions"] * pairs / (4 * sms_blocks[0] * clock * 1e6)
+                           * 1e3 if lp and clock else None)
+                variants[key] = {
+                    "ms": ms_v, "plain_ms": ms_vp, "gate": gv, "groups": groups_v,
+                    "row_bytes": rb, "ops_ms": ops_v, "bound_ms": max(ops_v, l2_v),
+                    "bound_ms_each_group_row_once": max(ops_v, (groups_v * rb + rest)
+                                                        / H100_BYTES * 1e3),
+                    "issue_floor_ms": floor_v,
+                    **({"order_sort_ms": ms_order} if od is not None else {})}
+                lines.append(f"  {key}: {ms_v:.5f} ms/launch at gate {gv} ({groups_v} groups), "
+                             f"plain {ms_vp:.4f} ms; bound {max(ops_v, l2_v):.5f} ms ({rb} B a "
+                             f"row, each distinct row once); issue floor "
+                             + (f"{floor_v:.5f} ms" if floor_v else "not measured")
+                             + (f"; dedup_order's sort {ms_order:.5f} ms" if od is not None
+                                else ""))
+            reset()
+            wave.wave_mt(p, d, table, col_t, col_c, False, *state)  # the wave, once
             floor_ms = (loop["loop_instructions"] * pairs / (4 * sms_blocks[0] * clock * 1e6)
                         * 1e3 if loop and clock else None)
             out.append({"scene": label, "wave": w + 1, "rays": n, "live_pairs": pairs,
                         "live_share": pairs / n, "distinct_clusters": distinct, "gate": g,
                         "groups": groups, "winners": won, "ms": ms_k, "ms_by_gate": by_gate,
-                        "plain_ms": ms_p,
+                        "plain_ms": ms_p, "variants": variants,
                         "ops_ms": ops_ms, "issue_floor_ms": floor_ms,
                         "bound_ms": max(ops_ms, l2_ms),
                         "bound_ms_each_group_row_once": max(ops_ms, group_ms),
@@ -1892,6 +1989,7 @@ def wave_timing(wave, ct, probe, scenes, case, multi, launches, errs, dev, loop=
                   f"{max(ops_ms, hbm_ms):.5f} ms with every row from device memory (ops "
                   f"{ops_ms:.5f} ms); issue floor "
                   + (f"{floor_ms:.5f} ms" if floor_ms else "not measured"), flush=True)
+            print("\n".join(lines), flush=True)  # the bf16 and ordered instances beside it
         return out
 
     name, data, p, d, _ = case
@@ -1915,6 +2013,22 @@ def wave_timing(wave, ct, probe, scenes, case, multi, launches, errs, dev, loop=
         "library_ms": None, "parity": True,
         "shape": f"{n} rays x 1 column, K {k} clusters ({name}), wave 1", "waves": waves,
     })
+    for key, ordered in (("wave_mt_bf16", ""), ("wave_mt_ordered", " in dedup_order"),
+                         ("wave_mt_bf16_ordered", " in dedup_order")):
+        v = first["variants"][key]
+        rows.append({
+            "name": key, "route": "cuda", "source": "phosphorus_mk2_tpu_torch/csrc/wave.cu",
+            "replaces": "phosphorus_mk2_tpu/accel/cluster_traverse.py:680",
+            # parity of the variants is phase 12's (a): it fills max_abs_err
+            "launches": launches[key], "max_abs_err": errs.get(key),
+            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": "bytes" if v["bound_ms"] > v["ops_ms"] else "operations",
+            "library_ms": None, "parity": True, "issue_floor_ms": v["issue_floor_ms"],
+            "shape": f"{n} rays x 1 column{ordered}, K {k} clusters ({name}), wave 1, "
+                     f"{v['row_bytes']} B rows",
+            "waves": [{"scene": w["scene"], "wave": w["wave"], **w["variants"][key]}
+                      for w in waves],
+        })
     return rows
 
 
@@ -1965,59 +2079,69 @@ def real_triangles(table):
     return int((table[:, 3:9] != 0).any(dim=1).sum())
 
 
-def sweep_timing(wave, table, p, d, needy, launches, errs, dev, sass, clock):
+def sweep_timing(wave, table, p, d, needy, launches, errs, dev, sass, clock, table_bf16):
     """Phase 7, wave_sweep: every cluster of the terrain's table for the
     shapes of ``sweep_shapes`` (8 rays, phase 4's front_k 8 needy rays,
-    2,048 rays). Bounds from each shape, over the table's real triangles
-    (lanes with a non-zero edge), not its pads: bytes = the table once +
-    44 a ray (index, origin, direction, best t in; a winner's t, cluster,
-    lane out); operations = m x triangles x 46; the issue floor = the
-    loop's instructions a (ray, row) pair of 128 tests (phase 2, the
-    plan's tile) x m x triangles / 128 over 4 warp-instructions a clock on
-    every SM at the SM clock read under load, printed beside the floor
-    over every lane of every row (m x K pairs). The kernels line carries
-    the 8-ray shape, with the others beside it."""
+    2,048 rays), with the float32 rows and with the bf16 rows
+    (``table_bf16``, its own instances). Bounds from each shape, over the
+    table's real triangles (lanes with a non-zero edge), not its pads:
+    bytes = the table once (4,608 or 2,304 bytes a row) + 44 a ray
+    (index, origin, direction, best t in; a winner's t, cluster, lane
+    out); operations = m x triangles x 46; the issue floor = the loop's
+    instructions a (ray, row) pair of 128 tests (phase 2, the plan's
+    tile, the instance's) x m x triangles / 128 over 4 warp-instructions
+    a clock on every SM at the SM clock read under load, printed beside
+    the floor over every lane of every row (m x K pairs). The kernels
+    line carries the 8-ray shape of each row type, with the others
+    beside it."""
     lib = wave.build()
     k, n = table.shape[0], p.shape[0]
-    row_b = table.shape[1] * table.shape[2] * 4
     tris = real_triangles(table)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"wave_sweep table: {tris} triangles in {k} rows of {table.shape[2]} lanes", flush=True)
-    out = []
-    for label, idx, start in sweep_shapes(n, dev, needy):
-        m = idx.shape[0]
-        plan = wave.sweep_plan(m, k, *wave.sweep_resident(lib, dev, wave.sweep_tile(m)))
-        ms, plain_ms = time_sweep(wave, p, d, table, idx, start)
-        ops_ms = m * tris * MT_OPS_PER_TEST / H100_FP32_OPS * 1e3
-        bytes_ms = (k * row_b + m * 44) / H100_BYTES * 1e3
-        per_pair = sass.get(f"wave_sweep_kernel<{plan['tile']}>", {}).get("per_pair")
-        issue = 4 * sms * clock * 1e6 if clock else None
-        floor_ms = per_pair * m * tris / table.shape[2] / issue * 1e3 if per_pair and issue else None
-        rows_ms = per_pair * m * k / issue * 1e3 if per_pair and issue else None
-        out.append({"shape": f"{m} rays x K {k} clusters ({label})", "m": m, "ms": ms,
-                    "plain_ms": plain_ms, "plan": plan, "triangles": tris,
-                    "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                    "bound_ms": max(ops_ms, bytes_ms),
-                    "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-                    "issue_floor_ms": floor_ms, "issue_floor_ms_every_lane": rows_ms,
-                    "instructions_a_pair": per_pair})
-        print(f"wave_sweep, {m} rays x {k} clusters ({label}): {ms:.5f} ms/launch at tile "
-              f"{plan['tile']} ({plan['splits']} ranges, {plan['blocks']} blocks), plain "
-              f"{plain_ms:.4f} ms; bound {max(ops_ms, bytes_ms):.5f} ms (bytes {bytes_ms:.5f}, "
-              f"ops {ops_ms:.5f}); issue floor " + (
-                  f"{floor_ms:.5f} ms over the triangles ({ms / floor_ms:.3f}x), {rows_ms:.5f} "
-                  f"over every lane ({ms / rows_ms:.3f}x); {per_pair:.1f} instructions a pair, "
-                  f"{clock} MHz" if floor_ms else "not measured"), flush=True)
-    first = out[0]
-    return {
-        "name": "wave_sweep", "route": "cuda",
-        "source": "phosphorus_mk2_tpu_torch/csrc/wave.cu",
-        "replaces": "phosphorus_mk2_tpu/accel/cluster_traverse.py:834",
-        "launches": launches["wave_sweep"], "max_abs_err": errs["wave_sweep"],
-        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
-        "bound_by": first["bound_by"], "library_ms": None, "parity": True,
-        "shape": first["shape"], "issue_floor_ms": first["issue_floor_ms"], "shapes": out,
-    }
+    rows = []
+    for key, tbl, suffix in (("wave_sweep", table, ""), ("wave_sweep_bf16", table_bf16, " bf16")):
+        row_b = tbl[0].numel() * tbl.element_size()
+        out = []
+        for label, idx, start in sweep_shapes(n, dev, needy):
+            m = idx.shape[0]
+            plan = wave.sweep_plan(m, k, *wave.sweep_resident(lib, dev, wave.sweep_tile(m),
+                                                              tbl.dtype))
+            ms, plain_ms = time_sweep(wave, p, d, tbl, idx, start)
+            ops_ms = m * tris * MT_OPS_PER_TEST / H100_FP32_OPS * 1e3
+            bytes_ms = (k * row_b + m * 44) / H100_BYTES * 1e3
+            per_pair = sass.get(f"wave_sweep_kernel<{plan['tile']}>{suffix}", {}).get("per_pair")
+            issue = 4 * sms * clock * 1e6 if clock else None
+            floor_ms = (per_pair * m * tris / tbl.shape[2] / issue * 1e3
+                        if per_pair and issue else None)
+            lanes_ms = per_pair * m * k / issue * 1e3 if per_pair and issue else None
+            out.append({"shape": f"{m} rays x K {k} clusters ({label})", "m": m, "ms": ms,
+                        "plain_ms": plain_ms, "plan": plan, "triangles": tris,
+                        "row_bytes": row_b, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                        "bound_ms": max(ops_ms, bytes_ms),
+                        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                        "issue_floor_ms": floor_ms, "issue_floor_ms_every_lane": lanes_ms,
+                        "instructions_a_pair": per_pair})
+            print(f"{key}, {m} rays x {k} clusters ({label}): {ms:.5f} ms/launch at tile "
+                  f"{plan['tile']} ({plan['splits']} ranges, {plan['blocks']} blocks), plain "
+                  f"{plain_ms:.4f} ms; bound {max(ops_ms, bytes_ms):.5f} ms (bytes "
+                  f"{bytes_ms:.5f} at {row_b} B a row, ops {ops_ms:.5f}); issue floor " + (
+                      f"{floor_ms:.5f} ms over the triangles ({ms / floor_ms:.3f}x), "
+                      f"{lanes_ms:.5f} over every lane ({ms / lanes_ms:.3f}x); {per_pair:.1f} "
+                      f"instructions a pair, {clock} MHz" if floor_ms else "not measured"),
+                  flush=True)
+        first = out[0]
+        rows.append({
+            "name": key, "route": "cuda",
+            "source": "phosphorus_mk2_tpu_torch/csrc/wave.cu",
+            "replaces": "phosphorus_mk2_tpu/accel/cluster_traverse.py:834",
+            "launches": launches[key], "max_abs_err": errs.get(key),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None, "parity": True,
+            "shape": first["shape"] + f", {row_b} B rows",
+            "issue_floor_ms": first["issue_floor_ms"], "shapes": out,
+        })
+    return rows
 
 
 def sweep_timing_only(more) -> int:
@@ -3192,7 +3316,416 @@ def oracle_phase(pt, scenes, mt, front, wave, terrain, terrain_data, dev, smi):
     return totals
 
 
-def run(profile: bool, upto: int) -> int:
+# ---------------------------------------------------------------------------
+# phase 12: the cluster tracer's four tunables
+# ---------------------------------------------------------------------------
+
+BMW_LIVE_RAYS = 1 << 17  # bench.py's bmw_live: the first 256 rows of 512x512 pixel centres
+TUNE_TURNS = 3           # timed turns of a tunable against the default, in one run
+# tracer_tune -> exact: the same winners as the default but for exact-t ties
+EXACT_TUNES = {
+    "slab_bf16 (sc_topk auto)": {"slab_bf16": True},
+    "slab_bf16 sc_topk extract": {"slab_bf16": True, "sc_topk": "extract"},
+    "front_levels 3": {"front_levels": 3},
+    "wave_dedup gather": {"wave_dedup": "gather"},
+    "wave_dedup onehot": {"wave_dedup": "onehot"},
+    "all exact": {"slab_bf16": True, "front_levels": 3, "wave_dedup": "gather"},
+}
+BF16_TUNES = {
+    "rows_bf16": {"rows_bf16": True},
+    "rows_bf16 wave_dedup gather": {"rows_bf16": True, "wave_dedup": "gather"},
+}
+NEW_KERNELS = ("wave_mt_bf16", "wave_mt_ordered", "wave_mt_bf16_ordered", "wave_sweep_bf16")
+
+
+def state_at(wave, data, p, d, ttbl, ctbl, w):
+    """The state a closest-hit trace's wave w meets (the waves before it
+    run by the float32 kernel), with the columns of wave w."""
+    state = fresh_state(torch.full((p.shape[0],), T_MAX, dtype=torch.float32, device=p.device))
+    for j in range(w):
+        wave.wave_mt(p, d, data.bvh["cluster_rows"], ttbl[:, j : j + 1], ctbl[:, j : j + 1],
+                     False, *state)
+    return state, ttbl[:, w : w + 1], ctbl[:, w : w + 1]
+
+
+def tunables_parity(wave, ct, waves, sweep_case, dev):
+    """12a: the new kernel instances against their plain versions on the
+    card, bit for bit (t, cluster and lane bits). waves: (label, data, p,
+    d, wave indices): wave_mt on the bf16 rows at the plan's gate and at
+    every gate forced, beside wave_mt_plain on the bf16 rows and its
+    gate= walk; then wave_mt over dedup_order's rays against no order,
+    with both row types. sweep_case: (label, data, p, d, best t): the
+    bf16 wave_sweep at 8 and 16 rays (a warp a tile) and 448 and 2,048
+    (rows staged) against wave_sweep_plain and its plan= walk. Returns
+    the largest absolute t difference of each instance, and the rows
+    wave_mt fetched with and without the order."""
+    err = {k: 0.0 for k in NEW_KERNELS}
+    fetched = []
+
+    def agree(kname, label, got, want):
+        bad = [int((bits(g) != bits(w)).sum()) if g.dtype == torch.float32
+               else int((g != w).sum()) for g, w in zip(got, want)]
+        hits = int((want[1] >= 0).sum())
+        print(f"{kname} {label}: {hits} rays hold a hit; mismatches t {bad[0]} cluster "
+              f"{bad[1]} lane {bad[2]}", flush=True)
+        check(sum(bad) == 0, f"{kname} disagrees with its plain version on {label}")
+        err[kname] = max(err[kname], float((got[0] - want[0]).abs().max()))
+        return hits
+
+    lib = wave.build()
+    for label, data, p, d, at in waves:
+        n = p.shape[0]
+        hits = 0  # rays holding a hit after the tested waves: no test without
+        f32, bf = data.bvh["cluster_rows"], data.bvh["cluster_rows_bf16"]
+        k = f32.shape[0]
+        tlim = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
+        ttbl, ctbl = front_table(ct, data, p, d, tlim)
+        for w in at:
+            start, col_t, col_c = state_at(wave, data, p, d, ttbl, ctbl, w)
+            tag = f"on {label}, wave {w + 1} of {n} rays"
+            want = [x.clone() for x in start]
+            wave.wave_mt_plain(p, d, bf, col_t, col_c, False, *want)
+            for gate in (None, *wave.GATES):
+                got = [x.clone() for x in start]
+                wave.wave_mt(p, d, bf, col_t, col_c, False, *got, gate=gate)
+                g = gate or wave.gate_plan(n, *wave.resident(lib, dev, bf.dtype))["g"]
+                walked = [x.clone() for x in start]
+                wave.wave_mt_plain(p, d, bf, col_t, col_c, False, *walked, gate=g)
+                torch.cuda.synchronize()
+                hits += agree("wave_mt_bf16", f"{tag}, gate {g}{'' if gate else ' (plan)'}", got,
+                              want)
+                check(all(torch.equal(a, b) for a, b in zip(walked, want)),
+                      f"wave_mt_plain(gate={g}) on the bf16 rows differs from the uncut walk "
+                      f"{tag}")
+            live = wave.live_columns(col_t[:, 0], start[0], start[1], False)
+            order = wave.dedup_order(col_c[:, 0], live)
+            for key, tbl in (("wave_mt_ordered", f32), ("wave_mt_bf16_ordered", bf)):
+                plain = [x.clone() for x in start]
+                wave.wave_mt_plain(p, d, tbl, col_t, col_c, False, *plain)
+                unordered = [x.clone() for x in start]
+                wave.wave_mt(p, d, tbl, col_t, col_c, False, *unordered)
+                got = [x.clone() for x in start]
+                wave.wave_mt(p, d, tbl, col_t, col_c, False, *got, order=order)
+                torch.cuda.synchronize()
+                hits += agree(key, f"{tag}, {tbl.dtype} rows, in dedup_order", got, plain)
+                check(all(torch.equal(a, b) for a, b in zip(got, unordered)),
+                      f"{key} {tag}: the ordered launch differs from the unordered one")
+            g = wave.gate_plan(n, *wave.resident(lib, dev))["g"]
+            rows = {od is not None: wave.wave_groups(col_t, col_c, start[0], start[1], False, k,
+                                                     g, order=od) for od in (None, order)}
+            pairs = int(live.sum())
+            distinct = int(torch.unique(col_c[:, 0][live]).numel())
+            fetched.append({"wave": f"{label}, wave {w + 1}", "rays": n, "live_pairs": pairs,
+                            "distinct": distinct, "gate": g, "rows_unordered": rows[False],
+                            "rows_ordered": rows[True]})
+            print(f"wave_mt rows fetched {tag} at gate {g}: {rows[False]} in ray order, "
+                  f"{rows[True]} in dedup_order ({rows[False] / max(rows[True], 1):.3f}x fewer); "
+                  f"{pairs} live rays on {distinct} distinct clusters", flush=True)
+        check(hits > 0, f"wave_mt parity on {label}: no ray holds a hit, no test")
+    label, data, p, d, lim = sweep_case
+    bf = data.bvh["cluster_rows_bf16"]
+    k = bf.shape[0]
+    every = torch.from_numpy(np.random.RandomState(31).permutation(p.shape[0])[:2048]
+                             .astype(np.int32)).to(dev)
+    for m in (8, 16, 448, 2048):
+        idx = every[:m].contiguous()
+        want = fresh_state(lim)
+        wave.wave_sweep_plain(p, d, bf, idx, *want)
+        got = fresh_state(lim)
+        wave.wave_sweep(p, d, bf, idx, *got)
+        plan = wave.sweep_plan(m, k, *wave.sweep_resident(lib, dev, wave.sweep_tile(m), bf.dtype))
+        walked = fresh_state(lim)
+        wave.wave_sweep_plain(p, d, bf, idx, *walked, plan=plan)
+        torch.cuda.synchronize()
+        hits = agree("wave_sweep_bf16", f"{m} rays x {k} clusters of {label}, tile "
+                     f"{plan['tile']}, {plan['splits']} ranges", got, want)
+        check(hits > 0, f"wave_sweep_bf16 at {m} rays: no ray hits, no test")
+        check(all(torch.equal(a, b) for a, b in zip(walked, want)),
+              f"wave_sweep_plain(plan=) on the bf16 rows differs from the uncut walk at {m}")
+    return err, fetched
+
+
+@contextlib.contextmanager
+def rows_fetched(wave):
+    """Counts, over the wave_mt calls made inside, the live (ray, column)
+    pairs, the distinct clusters a call's rays want (summed over the
+    calls) and the rows the kernel fetches (``wave_groups`` at the call's
+    gate and order). Yields the dict of counts."""
+    counts = {"calls": 0, "live_pairs": 0, "distinct": 0, "rows": 0}
+    launch = wave.wave_mt
+
+    def counted(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, gate=None,
+                order=None):
+        live = wave._gated_columns(col_t, col_c, best_t, best_c, any_hit, table.shape[0])
+        g = gate or wave.gate_plan(p.shape[0] if order is None else order.shape[0],
+                                   *wave.resident(wave.build(), p.device, table.dtype))["g"]
+        counts["calls"] += 1
+        counts["live_pairs"] += int(live.sum())
+        counts["distinct"] += sum(int(torch.unique(col_c[:, j][live[:, j]]).numel())
+                                  for j in range(col_c.shape[1]))
+        counts["rows"] += wave.wave_groups(col_t, col_c, best_t, best_c, any_hit,
+                                           table.shape[0], g, order=order)
+        return launch(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, gate=gate,
+                      order=order)
+
+    wave.wave_mt = counted
+    try:
+        yield counts
+    finally:
+        wave.wave_mt = launch
+
+
+def synced(fn):
+    """fn() and its wall seconds, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def bf16_quality(got, ref, occ, occ_ref):
+    """How far a rows_bf16 trace is from the exact one (JAX's
+    tests/test_front_table.py:118-147 measures): the share of rays whose
+    hit agrees; where both hit, the share on the same triangle and the
+    median relative t error there; the share within 2% of t; the share
+    whose occlusion agrees."""
+    both = got["hit"] & ref["hit"]
+    same = got["tri"][both] == ref["tri"][both]
+    t_g, t_r = got["t"][both][same], ref["t"][both][same]
+    rel = (t_g - t_r).abs() / t_r.abs().clamp(min=1e-6)
+    return {"hit_agreement": (got["hit"] == ref["hit"]).float().mean().item(),
+            "both_hit": int(both.sum()), "same_tri_share": same.float().mean().item(),
+            "median_rel_t_err": rel.median().item(),
+            "within_2pct_share": (rel < 2e-2).float().mean().item(),
+            "occlusion_agreement": (occ == occ_ref).float().mean().item()}
+
+
+def shadow_limits(t, hit, seed):
+    """Any-hit limits of shadow rays, mixed by thirds: short of the exact
+    closest hit (0.5-0.95 of its t: not occluded), past it (1.05-2 of
+    it: occluded), and 0 (masked); a ray that misses gets 0.05-3. Bounded
+    as a shadow ray is: rows_bf16's margins scale with tmax (the origin
+    is lifted by 0.005 tmax), so an unbounded tmax is no shadow ray."""
+    rs = np.random.RandomState(seed)
+    n = t.shape[0]
+    f = rs.uniform(0.5, 0.95, size=n).astype(np.float32)
+    f[1::3] = rs.uniform(1.05, 2.0, size=n).astype(np.float32)[1::3]
+    free = torch.from_numpy(rs.uniform(0.05, 3.0, size=n).astype(np.float32)).to(t.device)
+    tmax = torch.where(hit, t * torch.from_numpy(f).to(t.device), free)
+    tmax[2::3] = 0.0
+    return tmax.contiguous()
+
+
+def bmw_tunables(ct, wave, data, p, d, dev, count):
+    """12b: the BMW's pixel-centre rays (bmw_live's shape), closest hit and
+    any hit (``shadow_limits``), under each tunable: the exact ones equal to the
+    default trace (hit, occlusion, and t bit for bit where tri is equal)
+    but for ties, counted: exact-t ties (tri differs, t bit-equal:
+    recompact's ties) and edge ties (t within 1e-6 relative: a ray
+    through a shared edge, where a box's rounded tnear lets one front
+    table test the other triangle); rows_bf16's hit agreement > 0.99, its
+    other ``bf16_quality`` readings printed beside JAX's bounds, and its
+    trace with the kernels equal to its trace with plain=True (t and
+    occlusion bit for bit, tri but for exact-t ties). Each is timed in turns with the default (ms a
+    closest-hit trace, TUNE_TURNS turns, the median), with its waves and
+    host syncs a trace; the rows wave_mt fetched in a default and in a
+    wave_dedup trace (the dedup factor on this card) and the front
+    table's ms at front_levels 2 and 3. The timed traces are counted."""
+    n = p.shape[0]
+    closest0 = ct.intersect_clusters(data, p, d)
+    tmax = shadow_limits(closest0["t"], closest0["hit"], 33)
+    occ0 = ct.occluded_clusters(data, p, d, tmax)
+    hits0 = int(closest0["hit"].sum())
+    check(0 < hits0 < n and bool(occ0.any()), "BMW rays: no test (all or no rays hit)")
+    out = {"rays": n, "hits": hits0, "occluded": int(occ0.sum()), "tunes": {}}
+    for label, tune in {**EXACT_TUNES, **BF16_TUNES}.items():
+        for k in ct.STATS:
+            ct.STATS[k] = 0
+        got = ct.intersect_clusters(data, p, d, **tune)
+        occ = ct.occluded_clusters(data, p, d, tmax, **tune)
+        torch.cuda.synchronize()
+        stats = {k: v / 2 for k, v in ct.STATS.items()}  # a trace
+        ms = {"default": [], "tune": []}
+        for _ in range(TUNE_TURNS):  # in turns with the default
+            (_, s0), _ = count(lambda: synced(lambda: ct.intersect_clusters(data, p, d)))
+            (_, s1), _ = count(lambda: synced(lambda: ct.intersect_clusters(data, p, d, **tune)))
+            ms["default"].append(s0 * 1e3)
+            ms["tune"].append(s1 * 1e3)
+        row = {"tracer_tune": tune, "ms": float(np.median(ms["tune"])),
+               "default_ms": float(np.median(ms["default"])), "ms_turns": ms,
+               "waves_a_trace": stats["waves"], "syncs_a_trace": stats["syncs"],
+               "fallback_rays_a_trace": stats["fallback_rays"]}
+        if label in EXACT_TUNES:
+            diff = got["tri"] != closest0["tri"]
+            t_same = bits(got["t"]) == bits(closest0["t"])
+            exact = int((diff & t_same).sum())
+            # an edge tie: a ray through an edge two triangles share, both
+            # hit within 1e-6 relative, and a box's rounded tnear lets one
+            # table test the other triangle (phase 11's term)
+            edge_m = diff & ~t_same & ((got["t"] - closest0["t"]).abs()
+                                       <= 1e-6 * closest0["t"].abs())
+            edge = int(edge_m.sum())
+            bad = int((~t_same & ~edge_m).sum())  # the same triangle: t bit-equal
+            bad_hit = int((got["hit"] != closest0["hit"]).sum())
+            bad_occ = int((occ != occ0).sum())
+            row.update(exact_t_ties=exact, edge_ties=edge, other_differences=bad,
+                       hit_differs=bad_hit, occlusion_differs=bad_occ)
+            summary = (f"hit differs on {bad_hit}, occlusion on {bad_occ}, tri on "
+                       f"{int(diff.sum())} (exact-t ties {exact}, edge ties {edge}), other {bad}")
+            check(bad_hit == 0 and bad_occ == 0 and bad == 0,
+                  f"BMW {label}: {summary}: not the default trace's winners")
+            check(exact + edge <= n // 100,
+                  f"BMW {label}: {exact + edge} ties: too many to be ties")
+        else:
+            q = bf16_quality(got, closest0, occ, occ0)
+            row.update(q)
+            # JAX's bounds (tests/test_front_table.py:118-147) beside each
+            # reading; the hit agreement is held, the rest is what this
+            # tunable does on this asset (the port's rows_bf16 trace is the
+            # JAX package's to the bit on the CPU, tests/test_torch_tracer_tune.py)
+            bounds = {"hit_agreement": 0.99, "same_tri_share": 0.98,
+                      "within_2pct_share": 0.97, "occlusion_agreement": 0.99}
+            held = {k: q[k] > v for k, v in bounds.items()}
+            held["median_rel_t_err"] = q["median_rel_t_err"] < 1e-3
+            row["jax_bounds_held"] = held
+            summary = ", ".join(
+                f"{k} {q[k]:.6g} ({'held' if held[k] else 'missed'} JAX's "
+                f"{'< 1e-3' if k == 'median_rel_t_err' else '> ' + str(bounds[k])})"
+                for k in held) + f" over {q['both_hit']} both-hit rays"
+            check(held["hit_agreement"], f"BMW {label}: {summary}")
+            # the kernels against their plain versions, whole traces
+            plain = ct.intersect_clusters(data, p, d, plain=True, **tune)
+            plain_occ = ct.occluded_clusters(data, p, d, tmax, plain=True, **tune)
+            t_same = bits(plain["t"]) == bits(got["t"])
+            ties = int(((plain["tri"] != got["tri"]) & t_same).sum())
+            bad = int((~t_same).sum()) + int((plain_occ != occ).sum())
+            row.update(plain_exact_t_ties=ties, plain_other_differences=bad)
+            summary += f"; against plain=True: exact-t ties {ties}, other {bad}"
+            check(bad == 0 and ties <= n // 1000,
+                  f"BMW {label}: the kernels' trace differs from plain=True's: {summary}")
+        out["tunes"][label] = row
+        print(f"BMW {n} rays, {label} {tune}: {summary}; {row['ms']:.4f} ms a closest-hit trace "
+              f"against the default's {row['default_ms']:.4f} (medians of {TUNE_TURNS} turns); "
+              f"{stats['waves']:.1f} waves, {stats['syncs']:.1f} host syncs, "
+              f"{stats['fallback_rays']:.1f} fallback rays a trace", flush=True)
+    # the rows wave_mt fetches in a trace, with and without dedup_order
+    fetched = {}
+    for label, tune in (("default", {}), ("wave_dedup gather", {"wave_dedup": "gather"})):
+        with rows_fetched(wave) as c:
+            ct.intersect_clusters(data, p, d, **tune)
+        fetched[label] = dict(c)
+    f0, f1 = fetched["default"], fetched["wave_dedup gather"]
+    check(f0["calls"] > 0 and f1["rows"] > 0, f"BMW: no wave_mt call was counted: {fetched}")
+    out["rows_fetched"] = {**fetched, "reference_over_distinct": f0["live_pairs"] / f0["distinct"],
+                           "card_dedup_factor": f0["rows"] / f1["rows"]}
+    print(f"BMW closest-hit trace, rows wave_mt fetches: {f0['rows']} in ray order, {f1['rows']} "
+          f"in dedup_order (the card's dedup factor {f0['rows'] / f1['rows']:.4f}); "
+          f"{f0['live_pairs']} live (ray, column) pairs on {f0['distinct']} distinct clusters a "
+          f"wave, summed over {f0['calls']} waves (reference / distinct "
+          f"{f0['live_pairs'] / f0['distinct']:.4f})", flush=True)
+    # the front table alone at two and three levels
+    bvh = data.bvh
+    kk = min(ct.MAX_FRONT, bvh["cluster_bmin"].shape[0])
+    tl = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
+    front_ms = {}
+    for levels in (2, 3):
+        fn = lambda levels=levels: ct._front_table_hierarchical(p, d, bvh, tl, kk, levels=levels)  # noqa: E731
+        fn()
+        front_ms[levels] = cuda_ms(fn)
+    out["front_table_ms"] = front_ms
+    print(f"BMW front table of {n} rays: {front_ms[2]:.5f} ms at front_levels 2 (front_full), "
+          f"{front_ms[3]:.5f} ms at front_levels 3 (K3 {bvh['ssc_bmin'].shape[0]}; medians of "
+          f"{GATHER_REPS})", flush=True)
+    return out
+
+
+def bmw_tuned_films(ct, scene, data, dev, count):
+    """12c: the BMW at bmw_fwd's shape (512x512, 4 spp, depth 4, one
+    render_pass): the exact tunables together against the default film
+    on >= 99.9% of the pixels (ties only); rows_bf16 with the kernels
+    against rows_bf16 with plain=True at phase 6's rtol 1e-5; rays/s of
+    each (the films with the kernels counted), and the rows_bf16 film's
+    mean against the exact film's."""
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+    from phosphorus_mk2_tpu_torch.integrator.path import make_tracer, render_pass
+
+    w = h = 512
+    spp, depth = 4, 4
+    cam = camera_to_params(scene.camera, dev)
+
+    def film(tune):
+        with torch.no_grad():
+            out = render_pass(data, cam, 0, 0, spp, width=w, height=h, max_depth=depth,
+                              tracer=make_tracer(data, use_bvh=True, tracer_tune=tune))
+        return out["color"].reshape(h, w, 3).cpu().numpy() / spp
+
+    rays = w * h * spp * depth * 2
+    film({})  # warm-up
+    out, films = {}, {}
+    for label, tune in (("default", {}),
+                        ("exact tunables", {"front_levels": 3, "slab_bf16": True,
+                                            "wave_dedup": "gather"}),
+                        ("rows_bf16", {"rows_bf16": True})):
+        (img, secs), launches = count(lambda tune=tune: synced(lambda: film(tune)))
+        films[label] = img
+        check(np.isfinite(img).all() and img.mean() > 0, f"BMW film {label}: not finite or black")
+        out[label] = {"s": secs, "rays_per_s": rays / secs, "mean": float(img.mean()),
+                      "launches": launches}
+    close = float(np.isclose(films["exact tunables"], films["default"], rtol=1e-5,
+                             atol=1e-7).all(axis=-1).mean())
+    plain, _ = synced(lambda: film({"rows_bf16": True, "plain": True}))
+    diff = float(np.abs(films["rows_bf16"] - plain).max())
+    out["exact_vs_default_pixels"] = close
+    out["rows_bf16_vs_plain_max_abs_diff"] = diff
+    mean_ratio = out["rows_bf16"]["mean"] / out["default"]["mean"]
+    out["rows_bf16_mean_over_exact"] = mean_ratio
+    print(f"BMW {w}x{h} {spp} spp depth {depth} render_pass: " + "; ".join(
+        f"{k} {v['s']:.4f} s, {v['rays_per_s']:.1f} rays/s, mean {v['mean']:.6f}"
+        for k, v in out.items() if isinstance(v, dict)) + f"; exact tunables vs default: pixels "
+        f"within rtol 1e-5 {close:.6f}; rows_bf16 kernels vs plain=True max |diff| {diff:.3g}; "
+        f"rows_bf16 mean / exact mean {mean_ratio:.6f}", flush=True)
+    check(close >= 0.999, f"BMW: only {close} of the exact tunables' pixels match the default")
+    check(np.allclose(films["rows_bf16"], plain, rtol=1e-5, atol=0.0),
+          f"BMW rows_bf16: the kernels' film differs from the plain=True film by {diff}")
+    return out
+
+
+def tunables_phase(ct, mt, front, wave, bench, scenes, terrain_data, tp, td, dev, smi):
+    """Phase 12. Its main path is the timed traces of 12b and the three
+    kernel films of 12c, each counted from 0 just before and read just
+    after; the parity of 12a, the checking traces, the rows-fetched
+    count and the plain=True film are not counted. Returns (launches,
+    the parity's largest t difference of each new kernel instance)."""
+    t0 = time.perf_counter()
+    scene, data = bench.load_bmw(dev)
+    bvh = data.bvh
+    print(f"BMW: {data.num_tris} triangles, K {bvh['cluster_bmin'].shape[0]}, K2 "
+          f"{bvh['sc_bmin'].shape[0]}, K3 {bvh['ssc_bmin'].shape[0]}; loaded in "
+          f"{time.perf_counter() - t0:.2f} s; cluster_rows_bf16 "
+          f"{bvh['cluster_rows_bf16'].numel() * 2} B", flush=True)
+    check(data.num_tris == BMW_TRIS, f"BMW: {data.num_tris} triangles, not {BMW_TRIS}")
+    bp, bd = (x[:BMW_LIVE_RAYS].contiguous() for x in pixel_rays(scene, dev))
+    errs, fetched = tunables_parity(
+        # the BMW's first wave meets no triangle (every ray's nearest box
+        # is a cluster it does not hit): its second wave holds the winners
+        wave, ct, [("terrain_scene", terrain_data, tp, td, (0, 7)), ("BMW", data, bp, bd, (0, 1))],
+        ("terrain_scene", terrain_data, tp, td, mixed_limits(32, tp.shape[0], dev)), dev)
+    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
+    count = launch_counter((mt, front, wave), totals)
+    summary = {"parity_rows_fetched": fetched,
+               "traces": bmw_tunables(ct, wave, data, bp, bd, dev, count),
+               "films": bmw_tuned_films(ct, scene, data, dev, count)}
+    for k in ("front_full", "wave_mt", *NEW_KERNELS):
+        check(totals[k] > 0, f"phase 12: {k} was not launched")
+    summary["launches_counted"] = totals
+    summary["device"] = smi
+    print(json.dumps({"tunables": summary}), flush=True)
+    return totals, errs
+
+
+
+def run(profile: bool, upto: int, only_tunables: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -3239,6 +3772,12 @@ def run(profile: bool, upto: int) -> int:
                   ("multi_bsdf_scene", multi_data, mp, md, cases[1][4])]
     errs.update(wave_parity(wave, ct, probe, wave_cases, dev))
     errs["wave_sweep"] = max(errs["wave_sweep"], sweep_parity(wave, wave_cases[0], dev))
+    if only_tunables:
+        phase("12 the cluster tracer's tunables (alone)")
+        from phosphorus_mk2_tpu_torch import bench
+
+        tunables_phase(ct, mt, front, wave, bench, scenes, terrain_data, tp, td, dev, smi)
+        return 0
     if upto < 4:
         return 0
 
@@ -3264,9 +3803,10 @@ def run(profile: bool, upto: int) -> int:
     rows = mt_timing(mt, scenes, dev, launches, errs, sass)
     rows += front_timing(front, cases, launches, errs)
     rows += wave_timing(wave, ct, probe, scenes, wave_cases[0], multi_data, launches, errs,
-                        dev, sass.get("wave_mt_kernel"), rows[0]["sm_clock_mhz"])
-    rows.append(sweep_timing(wave, terrain_data.bvh["cluster_rows"], p4, d4, needy,
-                             launches, errs, dev, sass, rows[0]["sm_clock_mhz"]))
+                        dev, sass.get("wave_mt_kernel"), rows[0]["sm_clock_mhz"],
+                        sass.get("wave_mt_kernel bf16"))
+    rows += sweep_timing(wave, terrain_data.bvh["cluster_rows"], p4, d4, needy, launches, errs,
+                         dev, sass, rows[0]["sm_clock_mhz"], terrain_data.bvh["cluster_rows_bf16"])
     if upto < 8:
         return 0
 
@@ -3288,9 +3828,24 @@ def run(profile: bool, upto: int) -> int:
 
     phase("11 oracle tracers and gather_rows")
     oracle_launches = oracle_phase(pt, scenes, mt, front, wave, terrain, terrain_data, dev, smi)
+    if upto < 12:
+        return 0
+
+    phase("12 the cluster tracer's tunables")
+    from phosphorus_mk2_tpu_torch import bench
+
+    tune_launches, tune_errs = tunables_phase(ct, mt, front, wave, bench, scenes, terrain_data,
+                                              tp, td, dev, smi)
     for row in rows:  # the kernels line counts the main path of every phase
         row["launches"] += (grad_launches[row["name"]] + io_launches[row["name"]]
-                            + entry_launches[row["name"]] + oracle_launches[row["name"]])
+                            + entry_launches[row["name"]] + oracle_launches[row["name"]]
+                            + tune_launches[row["name"]])
+        if row["max_abs_err"] is None:  # a new instance: its parity is phase 12's
+            row["max_abs_err"] = tune_errs[row["name"]]
+    names = [row["name"] for row in rows]
+    check(all(k in names for k in NEW_KERNELS), f"the kernels line lacks one of {NEW_KERNELS}")
+    check(all(row["launches"] > 0 for row in rows),
+          f"a kernel was never launched on a main path: {[(r['name'], r['launches']) for r in rows]}")
 
     print(json.dumps({"tracer_vs_oracle": {"exact_t_ties": ties, "rays": N_RAYS,
                                            "fallback_share": fallback_share,
@@ -3308,9 +3863,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one pass of each main-path render with torch.profiler")
-    ap.add_argument("--upto", type=int, default=11, metavar="PHASE",
+    ap.add_argument("--upto", type=int, default=12, metavar="PHASE",
                     help="stop after this phase (2 or 3: build and parity only, for a "
                          "first look at a new kernel); prints no result line")
+    ap.add_argument("--only-tunables", action="store_true",
+                    help="phases 1-3, then phase 12 alone (no result line)")
     ap.add_argument("--sweep-timing", action="store_true",
                     help="only time wave_sweep at phase 7's shapes and print one JSON line "
                          "(no result line)")
@@ -3328,11 +3885,11 @@ def main() -> int:
             return 2
         return sweep_timing_only([int(x) for x in args.m.split(",") if x])
     try:
-        rc = run(args.profile, args.upto)
+        rc = run(args.profile, args.upto, args.only_tunables)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if rc == 0 and args.upto < 11:
+    if rc == 0 and (args.upto < 12 or args.only_tunables):
         print(f"chip_smoke: stopped after phase {args.upto}; no result", file=sys.stderr)
     return rc
 

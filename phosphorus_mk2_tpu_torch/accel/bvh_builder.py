@@ -20,10 +20,6 @@ Differences from the reference (documented):
 ``build_bvh`` is the correctness builder in numpy; the C++ builder
 (csrc/bvh_builder.cpp through accel/native_bvh.py, same output format)
 is the production path for large scenes.
-
-Left out of the copy: the ``*_bf16`` bounds tables (they serve only the
-``slab_bf16`` tunable) and the ``ssc_*`` super-supercluster tables (they
-serve only ``front_levels=3``); see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -49,6 +45,11 @@ CLUSTER_TRIS = 128  # triangle-cluster granularity for the cluster
 SUPER_CLUSTERS = 16  # clusters per supercluster (hierarchical culling)
 DENSE_CLUSTERS = 2048  # above this the tracer goes hierarchical
                        # (cluster_traverse.DENSE_K imports this)
+# the bounds tables that attach_bvh also gives as outward-rounded bf16
+# copies (name + "_bf16")
+BOUNDS_TABLES = ("cluster_bmin", "cluster_bmax", "sc_member_bmin", "sc_member_bmax",
+                 "sc_bmin", "sc_bmax", "ssc_member_bmin", "ssc_member_bmax",
+                 "ssc_bmin", "ssc_bmax")
 
 
 class _BuildCtx:
@@ -469,7 +470,57 @@ def attach_bvh(scene_data, bvh: dict | None = None,
         tables["sc_bmin"] = np.nanmin(mb_min, axis=1)
         tables["sc_bmax"] = np.nanmax(mb_max, axis=1)
 
+    # ---- super-supercluster level (the three-level front table): groups
+    # of SC superclusters, so the slab and selection that seed the front
+    # table run over K3 = ceil(K2 / SC) columns instead of K2
+    K3 = -(-K2 // SC)
+    nan3 = np.full((K3 * SC - K2, 3), np.nan, np.float32)
+    m3_min = np.concatenate([tables["sc_bmin"], nan3]).reshape(K3, SC, 3)
+    m3_max = np.concatenate([tables["sc_bmax"], nan3]).reshape(K3, SC, 3)
+    tables["ssc_member_bmin"] = m3_min
+    tables["ssc_member_bmax"] = m3_max
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        tables["ssc_bmin"] = np.nanmin(m3_min, axis=1)
+        tables["ssc_bmax"] = np.nanmax(m3_max, axis=1)
+
     on_dev = {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in tables.items()
     }
+    # bf16 copies of every bounds table, rounded OUTWARD (min down, max
+    # up) so boxes only grow: the slab tnear only drops and hits are only
+    # added, conservative for the front table, its horizon and the live
+    # gate (the slab_bf16 tunable; the Moller-Trumbore stays float32)
+    for name in BOUNDS_TABLES:
+        on_dev[name + "_bf16"] = bf16_from_bits(
+            _bf16_outward(tables[name], up=name.endswith("bmax")), dev)
+    # the rows in bf16, rounded to nearest even (the rows_bf16 tunable):
+    # made once here, so that no trace pays for the cast
+    on_dev["cluster_rows_bf16"] = torch.from_numpy(tables["cluster_rows"]).to(
+        torch.bfloat16).to(dev)
     return dataclasses.replace(scene_data, bvh=on_dev)
+
+
+
+def _bf16_outward(x: np.ndarray, up: bool) -> np.ndarray:
+    """Round float32 values to the nearest bf16 toward +inf (up) or -inf
+    (down). Returned as float32 holding values that bf16 represents
+    exactly; NaN stays NaN. Values are first clipped to +-3.38e38, inside
+    bf16's finite range (no infinities in the slab arithmetic)."""
+    x = np.ascontiguousarray(np.clip(x.astype(np.float32), -3.38e38, 3.38e38))
+    bits = x.view(np.uint32)
+    t = bits & np.uint32(0xFFFF0000)  # truncate the mantissa: toward zero
+    tv = t.view(np.float32)
+    # truncation rounds a positive value down and a negative one up: where
+    # that is the wrong way, one bf16 ulp away from zero (0x10000 on the
+    # bit pattern)
+    need = (tv < x) if up else (tv > x)
+    return np.where(need, t + np.uint32(0x10000), t).view(np.float32)
+
+
+def bf16_from_bits(x: np.ndarray, device) -> torch.Tensor:
+    """A bf16 tensor on ``device`` of float32 values that bf16 represents
+    exactly (their low 16 bits are zero): the top 16 bits of each, moved
+    as integers, so no rounding rule of any library is involved."""
+    top = (np.ascontiguousarray(x, np.float32).view(np.uint32) >> 16).astype(np.uint16)
+    return torch.from_numpy(top.view(np.int16)).view(torch.bfloat16).to(device)

@@ -35,6 +35,12 @@ index at the minimum wins; in the fallback clusters come in ascending
 id. The live gate of a wave compares the (after a recompaction:
 truncated) table tnear with the ray's best t at the start of that wave.
 
+Four tunables trade or keep exactness (``_trace``): ``slab_bf16`` slab-tests
+the outward-rounded bf16 bounds tables (boxes only grow), ``front_levels=3``
+seeds the front table from the super-superclusters, ``wave_dedup`` fetches
+each distinct row of a wave once, and ``rows_bf16`` traces bf16 rows (the
+one that changes winners: quantized geometry).
+
 Every data-dependent trip count is a host sync here (``STATS`` counts
 them under "syncs"): one per segment of waves for the table depth, one
 per recompaction for the width and one for the indices of the fallback's
@@ -51,6 +57,7 @@ from phosphorus_mk2_tpu_torch.accel import front, wave
 from phosphorus_mk2_tpu_torch.accel.bvh_builder import DENSE_CLUSTERS as DENSE_K
 from phosphorus_mk2_tpu_torch.accel.bvh_builder import SUPER_CLUSTERS as SC
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, mt_intersect
+from phosphorus_mk2_tpu_torch.accel.wave import dedup_rows as _dedup_rows  # noqa: F401
 from phosphorus_mk2_tpu_torch.accel.wave import mt_rows as _mt_rows  # noqa: F401  (its old home)
 
 MAX_FRONT = 32  # per-ray front-to-back cluster table depth; rays that
@@ -61,20 +68,27 @@ SC_FRONT = 16   # supercluster table depth in hierarchical mode
 # last cleared it (a profile reads it; nothing in the tracer does)
 STATS = {"traces": 0, "syncs": 0, "waves": 0, "fallback_rays": 0, "rays": 0}
 
-_LATER = {
-    "slab_bf16": "the bf16 bounds tables",
-    "rows_bf16": "the bf16 triangle rows",
-    "wave_dedup": "the per-wave cluster-row dedup (_dedup_rows)",
-    "dedup_d": "the per-wave cluster-row dedup (_dedup_rows)",
-    "front_levels": "the three-level front table (ssc tables)",
-}
+WAVE_DEDUP = ("off", "gather", "onehot")
 
 
-def _cluster_rows(scene):
+def _cluster_rows(scene, bf16: bool = False):
     """(K, 9, C) triangle component rows (a|e0|e1), gathered per ray each
     wave. The winner is tracked as (cluster, lane) and mapped to a
-    triangle id once per trace, so no id row rides in a wave's gather."""
-    return scene.bvh["cluster_rows"]
+    triangle id once per trace, so no id row rides in a wave's gather.
+    bf16=True: the rows in bf16 (``attach_bvh`` rounds them to nearest
+    even once), half the bytes a wave; the MT then runs on quantized
+    geometry, which can flip the winner between surfaces closer than
+    ~0.4% and miss rays within that band of a silhouette."""
+    return scene.bvh["cluster_rows_bf16" if bf16 else "cluster_rows"]
+
+
+def _table(bvh, name, slab_bf16):
+    """A bounds table: its outward-rounded bf16 copy under slab_bf16
+    (conservative: boxes only grow), else the float32 one. Every reader
+    upcasts right after the read."""
+    if slab_bf16 and name + "_bf16" in bvh:
+        return bvh[name + "_bf16"]
+    return bvh[name]
 
 
 def _slab_interval(p, inv, bmin, bmax):
@@ -99,7 +113,7 @@ def _slab_all(p, d, bmin, bmax):
     """(N, K) cluster slab test. Returns (hit, tnear >= 0); a NaN-bounded
     slot has hit False."""
     inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
-    tn, tf = _slab_interval(p, inv, bmin[None], bmax[None])
+    tn, tf = _slab_interval(p, inv, bmin.float()[None], bmax.float()[None])
     hit = (tn <= tf) & (tf >= 0.0)
     return hit, front.clamp0(tn)
 
@@ -113,9 +127,10 @@ def _stable_smallest(vals, k):
     return t[:, :k], idx[:, :k].int()
 
 
-def _front_table_dense(pp, dd, bvh, t_limit, kk):
+def _front_table_dense(pp, dd, bvh, t_limit, kk, slab_bf16=False):
     """Dense (N, K) slab + the kk nearest. Returns (ttbl, ctbl, horizon)."""
-    hit_tbl, tn_tbl = _slab_all(pp, dd, bvh["cluster_bmin"], bvh["cluster_bmax"])
+    hit_tbl, tn_tbl = _slab_all(pp, dd, _table(bvh, "cluster_bmin", slab_bf16),
+                                _table(bvh, "cluster_bmax", slab_bf16))
     pending0 = hit_tbl & (tn_tbl < t_limit[:, None])
     ttbl, ctbl = _stable_smallest(torch.where(pending0, tn_tbl, T_MAX), kk)
     return ttbl, ctbl, T_MAX  # horizon: every cluster was tested
@@ -167,7 +182,7 @@ def _expand_members(pp, dd, mbmin, mbmax, ptbl, p_ttbl, t_limit, expand_batch=1)
         sc_b = sct[:, g * B : (g + 1) * B]
         live = live_col[:, g * B : (g + 1) * B]
         pid = torch.where(live, sc_b, 0).long()
-        tn, tf = _slab_interval(pp, inv, mbmin[pid], mbmax[pid])  # (N, B, SC)
+        tn, tf = _slab_interval(pp, inv, mbmin[pid].float(), mbmax[pid].float())  # (N, B, SC)
         hit = (tn <= tf) & (tf >= 0.0) & live[:, :, None] & (tn < t_limit[:, None, None])
         outs.append(torch.where(hit, front.clamp0(tn), T_MAX).reshape(n, B * sc))
     return torch.cat(outs, dim=1), sct
@@ -180,50 +195,76 @@ def _reconstruct_ids(ptbl, col, sc):
 
 
 def _front_table_hierarchical(pp, dd, bvh, t_limit, kk, expand_batch=1, levels=2,
-                              sc_topk="auto", sc_front=0, plain=False):
-    """Supercluster-culled front table for big scenes: slab the (N, K2)
-    superclusters, take each ray's jj nearest, expand their members
-    (16-wide slab of bounds gathered by parent id), end in the kk nearest
-    clusters. Memory is O(N * width), never O(N * K).
+                              sc_topk="auto", sc_front=0, slab_bf16=False, plain=False):
+    """Supercluster-culled front table for big scenes: slab the coarsest
+    level, take each ray's nearest, expand their members (16-wide slab of
+    bounds gathered by parent id), on to the next level, ending in the kk
+    nearest clusters. Memory is O(N * width), never O(N * K).
 
-    sc_topk: "auto" and "pallas_full" are the whole table in one kernel
-    (accel/front.py ``front_full``: the CUDA kernel on the card, its plain
-    version on CPU tensors); "pallas" is the fused slab + extraction
-    kernel (``front_slab_extract``) followed by the plain expansion;
-    "extract", "sort" and "topk" are the plain oracle forms. plain=True
-    takes the kernels' plain versions on any device.
+    levels=2: the (N, K2) supercluster slab seeds the table. levels=3
+    (when the ``ssc_*`` tables exist): the (N, K3) super-supercluster slab
+    seeds it, K3 = ceil(K2 / 16), and the jj nearest superclusters are
+    selected from the expanded members of the jj nearest of those
+    (expanded in one step), then the level-2 tail.
+
+    sc_topk, at level 2: "auto" and "pallas_full" are the whole table in
+    one kernel (accel/front.py ``front_full``: the CUDA kernel on the
+    card, its plain version on CPU tensors), which reads the float32
+    tables whatever slab_bf16 says, as the JAX package's fused kernel
+    does; "pallas" is the fused slab + extraction kernel
+    (``front_slab_extract``, float32 tables) followed by the plain
+    expansion; "extract", "sort" and "topk" are the plain oracle forms.
+    At level 3 the selection of superclusters is the JAX package's:
+    "extract" for "auto" and "extract", a packed row sort for the rest.
+    slab_bf16: every plain slab reads the bf16 tables. plain=True takes
+    the kernels' plain versions on any device.
 
     Returns (ttbl, ctbl, horizon (N,)): clusters beyond the horizon are
     NOT in the table, so a ray whose best hit is farther needs the exact
     fallback.
     """
-    if levels != 2:
-        raise NotImplementedError(
-            f"front_levels={levels}: {_LATER['front_levels']} are not ported "
-            "(see ROADMAP.md)"
-        )
     sc_front = sc_front or SC_FRONT
-    K2 = bvh["sc_bmin"].shape[0]
-    jj = min(sc_front, K2)
-    mbmin, mbmax = bvh["sc_member_bmin"], bvh["sc_member_bmax"]
-    if sc_topk in ("auto", "pallas_full"):
-        ttbl, col, pt, pid = front.front_all(
-            bvh["sc_bmin"], bvh["sc_bmax"], mbmin, mbmax, pp, dd, t_limit,
-            jj=jj, kk=kk, plain=plain,
+    mbmin = _table(bvh, "sc_member_bmin", slab_bf16)
+    mbmax = _table(bvh, "sc_member_bmax", slab_bf16)
+    if levels >= 3 and "ssc_bmin" in bvh:
+        s3_hit, s3_tn = _slab_all(pp, dd, _table(bvh, "ssc_bmin", slab_bf16),
+                                  _table(bvh, "ssc_bmax", slab_bf16))
+        j3 = min(sc_front, s3_tn.shape[1])
+        s3_m = torch.where(s3_hit & (s3_tn < t_limit[:, None]), s3_tn, T_MAX)
+        s3_ttbl, s3_tbl = _select_topk(s3_m, j3, mode="extract")
+        sc_cand, s3_pad = _expand_members(
+            pp, dd, _table(bvh, "ssc_member_bmin", slab_bf16),
+            _table(bvh, "ssc_member_bmax", slab_bf16), s3_tbl, s3_ttbl, t_limit,
+            expand_batch=sc_front,
         )
-        return ttbl, _reconstruct_ids(pid, col, SC), pt[:, -1]
-    if sc_topk == "pallas":
-        sc_ttbl, sctbl = front.slab_extract(
-            bvh["sc_bmin"], bvh["sc_bmax"], pp, dd, t_limit, jj=jj, plain=plain
-        )
+        jj = min(sc_front, sc_cand.shape[1])
+        mode = "extract" if sc_topk in ("auto", "extract") else "sort"
+        sc_ttbl, sc_col = _select_topk(sc_cand, jj, mode=mode)
+        sctbl = _reconstruct_ids(s3_pad, sc_col, SC)
+        # the nearest entry either level left out (truncated keys: lower)
+        horizon = torch.minimum(s3_ttbl[:, -1], sc_ttbl[:, -1])
     else:
-        sc_hit, sc_tn = _slab_all(pp, dd, bvh["sc_bmin"], bvh["sc_bmax"])
-        sc_m = torch.where(sc_hit & (sc_tn < t_limit[:, None]), sc_tn, T_MAX)
-        if sc_topk == "topk":
-            sc_ttbl, sctbl = _stable_smallest(sc_m, jj)
+        K2 = bvh["sc_bmin"].shape[0]
+        jj = min(sc_front, K2)
+        if sc_topk in ("auto", "pallas_full"):
+            ttbl, col, pt, pid = front.front_all(
+                bvh["sc_bmin"], bvh["sc_bmax"], bvh["sc_member_bmin"], bvh["sc_member_bmax"],
+                pp, dd, t_limit, jj=jj, kk=kk, plain=plain,
+            )
+            return ttbl, _reconstruct_ids(pid, col, SC), pt[:, -1]
+        if sc_topk == "pallas":
+            sc_ttbl, sctbl = front.slab_extract(
+                bvh["sc_bmin"], bvh["sc_bmax"], pp, dd, t_limit, jj=jj, plain=plain
+            )
         else:
-            sc_ttbl, sctbl = _select_topk(sc_m, jj, mode=sc_topk)
-    horizon = sc_ttbl[:, -1]
+            sc_hit, sc_tn = _slab_all(pp, dd, _table(bvh, "sc_bmin", slab_bf16),
+                                      _table(bvh, "sc_bmax", slab_bf16))
+            sc_m = torch.where(sc_hit & (sc_tn < t_limit[:, None]), sc_tn, T_MAX)
+            if sc_topk == "topk":
+                sc_ttbl, sctbl = _stable_smallest(sc_m, jj)
+            else:
+                sc_ttbl, sctbl = _select_topk(sc_m, jj, mode=sc_topk)
+        horizon = sc_ttbl[:, -1]
     cand_t, sc_pad = _expand_members(
         pp, dd, mbmin, mbmax, sctbl, sc_ttbl, t_limit, expand_batch=expand_batch
     )
@@ -233,13 +274,14 @@ def _front_table_hierarchical(pp, dd, bvh, t_limit, kk, expand_batch=1, levels=2
 
 def _trace(scene, p, d, t_limit, any_hit,
            dense_waves=0, chunk=1 << 17, dense_chunk=16384, expand_batch=1,
-           sc_topk="auto", front_k=0, fb_cc=0, recompact=8, dense_k=0,
-           sc_front=0, plain=False, **later):
+           slab_bf16=False, front_levels=0, sc_topk="auto", front_k=0,
+           rows_bf16=False, fb_cc=0, recompact=8, dense_k=0, sc_front=0,
+           wave_dedup="off", dedup_d=512, plain=False):
     """Core trace. Returns (t, cid, lane) of every ray's winner (cid -1
     on a miss; with any_hit, of some hit within t_limit).
 
-    Tunables (none changes a winner, but for exact-t ties under
-    ``recompact``, see below):
+    Tunables (none but rows_bf16 changes a winner, but for exact-t ties
+    under ``recompact``, see below):
     dense_waves: the first W0 front-table columns are evaluated for ALL
       rays in one step (each against the ray's best t at its start),
       before the per-wave loop.
@@ -251,6 +293,13 @@ def _trace(scene, p, d, t_limit, any_hit,
       temporaries.
     expand_batch: parents expanded per step of the plain member
       expansion.
+    slab_bf16: the plain slab tests read the outward-rounded bf16 bounds
+      tables (boxes only grow, so a table only gains entries; the MT
+      stays float32). The fused front kernel (``front_full``, sc_topk
+      "auto") reads the float32 tables regardless, as JAX's does.
+    front_levels: 0 means 2; 3 seeds the hierarchical front table from
+      the super-superclusters (``ssc_*`` tables), see
+      ``_front_table_hierarchical``.
     sc_topk: how the hierarchical front table is made, see
       ``_front_table_hierarchical``.
     front_k: override MAX_FRONT (per-ray table depth). sc_front: override
@@ -269,20 +318,29 @@ def _trace(scene, p, d, t_limit, any_hit,
     dense_k: override DENSE_K, the cluster count above which the
       supercluster front table is used (lets small scenes take the
       hierarchical path).
+    rows_bf16: the waves and the fallback test the bf16 rows (half the
+      bytes a row): float32 arithmetic on quantized geometry, so the
+      winner can change (see ``_cluster_rows``; ``occluded_clusters``
+      widens its margins). The only tunable that changes images.
+    wave_dedup: "off", "gather" or "onehot": each distinct cluster row
+      of a single-column wave (the per-wave loop, not the dense head) is
+      fetched once. On CPU tensors, or with plain=True, the plain wave
+      takes its rows through ``dedup_rows`` (JAX's ``_dedup_rows``, by
+      the route named). On the card both routes launch ``wave_mt`` over
+      ``dedup_order``: the rays sorted by cluster, so the kernel's
+      per-warp groups (``__match_any_sync``) fetch each row once for
+      every ray of a warp that wants it. Exact either way.
+    dedup_d: the compact buffer of the plain "onehot" route (a wave with
+      more distinct clusters gathers directly). The card has no such
+      buffer, so nothing there overflows.
     plain: take the plain versions of the front-table and wave kernels
       on any device (to hold a whole trace against the kernels on the
       card).
-    slab_bf16, rows_bf16, wave_dedup, front_levels=3 are not ported.
     """
-    for name, value in later.items():
-        if name not in _LATER:
-            raise TypeError(f"_trace() got an unexpected tunable {name!r}")
-        if value and value != "off" and not (name == "front_levels" and value == 2):
-            raise NotImplementedError(
-                f"{name}={value!r}: {_LATER[name]} are not ported (see ROADMAP.md)"
-            )
+    if wave_dedup not in WAVE_DEDUP:
+        raise ValueError(f"wave_dedup must be one of {WAVE_DEDUP}, got {wave_dedup!r}")
     bvh = scene.bvh
-    rows_tbl = _cluster_rows(scene)
+    rows_tbl = _cluster_rows(scene, bf16=rows_bf16)
     K = rows_tbl.shape[0]
     n = p.shape[0]
     dev = p.device
@@ -301,12 +359,12 @@ def _trace(scene, p, d, t_limit, any_hit,
     kk = min(front_k or MAX_FRONT, K)
     if K > (dense_k or DENSE_K) and "sc_bmin" in bvh:
         ttbl, ctbl, sc_horizon = _front_table_hierarchical(
-            pp, dd, bvh, t_limit, kk, expand_batch=expand_batch, sc_topk=sc_topk,
-            sc_front=sc_front, plain=plain,
+            pp, dd, bvh, t_limit, kk, expand_batch=expand_batch, levels=front_levels or 2,
+            sc_topk=sc_topk, sc_front=sc_front, slab_bf16=slab_bf16, plain=plain,
         )
         kth_tn = torch.minimum(ttbl[:, -1], sc_horizon)  # per-ray covered horizon
     else:
-        ttbl, ctbl, _ = _front_table_dense(pp, dd, bvh, t_limit, kk)
+        ttbl, ctbl, _ = _front_table_dense(pp, dd, bvh, t_limit, kk, slab_bf16=slab_bf16)
         kth_tn = ttbl[:, -1]
 
     # the kernels of accel/wave.py for CUDA tensors, their plain versions
@@ -314,14 +372,20 @@ def _trace(scene, p, d, t_limit, any_hit,
     use_plain = plain or not pp.is_cuda
     state = (best_t, best_c, best_l)  # updated in place from here on
 
-    def mt_step(col_t, col_c, step):
+    def mt_step(col_t, col_c, step, dedup=False):
         """Front-table columns col_t / col_c (n, w) for every ray: the
         live entries are tested against the ray's best t at the call. The
         plain version compacts the live rays by index, ``step`` at a time,
-        which is a host sync; the kernel gates each ray itself."""
+        which is a host sync; the kernel gates each ray itself. dedup (one
+        column): wave_dedup's rows, or on the card its ray order."""
         if use_plain:
-            wave.wave_mt_plain(pp, dd, rows_tbl, col_t, col_c, any_hit, *state, chunk=step)
+            wave.wave_mt_plain(pp, dd, rows_tbl, col_t, col_c, any_hit, *state, chunk=step,
+                               dedup=(wave_dedup, dedup_d) if dedup else None)
             STATS["syncs"] += 1
+        elif dedup:
+            live = wave.live_columns(col_t[:, 0], best_t, best_c, any_hit)
+            order = wave.dedup_order(col_c[:, 0], live)
+            wave.wave_mt(pp, dd, rows_tbl, col_t, col_c, any_hit, *state, order=order)
         else:
             wave.wave_mt(pp, dd, rows_tbl, col_t, col_c, any_hit, *state)
 
@@ -339,7 +403,7 @@ def _trace(scene, p, d, t_limit, any_hit,
         depth = int((tbl_t[:, w0:ncols] < T_MAX).sum(dim=1).max())
         STATS["syncs"] += 1
         for w in range(w0, w0 + depth):
-            mt_step(tbl_t[:, w : w + 1], tbl_c[:, w : w + 1], chunk)
+            mt_step(tbl_t[:, w : w + 1], tbl_c[:, w : w + 1], chunk, dedup=wave_dedup != "off")
             STATS["waves"] += 1
 
     if recompact and 0 < recompact < kk - W0:
@@ -411,8 +475,21 @@ def intersect_clusters(scene, p, d, tmax=None, **tune):
 def occluded_clusters(scene, p, d, tmax, **tune):
     """Any hit within [0, tmax) through the cluster tracer; tmax <= 0
     disables a ray (it traces with a limit of 1e-6 and is masked after).
-    Returns (N,) bool."""
+    Returns (N,) bool.
+
+    Under rows_bf16 the hit t carries ~0.2-0.5% relative error from the
+    quantized geometry, more than the absolute offset the caller already
+    took off: a shadow ray would find its own light just inside tmax,
+    and its origin lies inside its own quantized surface. Both margins
+    therefore scale with the ray's extent, as in the JAX package: the
+    origin is lifted by 0.005 tmax along d and tmax shrunk to
+    0.99 tmax - lift (a ray left with tmax <= 0 is disabled)."""
     disabled = tmax <= 0.0
+    if tune.get("rows_bf16"):
+        lift = 0.005 * torch.clamp(tmax, min=0.0)
+        p = p + d * lift[:, None]
+        tmax = tmax * 0.99 - lift
+        disabled = disabled | (tmax <= 0.0)
     t0 = torch.where(disabled, 1e-6, tmax)
     _, cid, _ = _trace(scene, p, d, t0, True, **tune)
     return (cid >= 0) & ~disabled

@@ -33,6 +33,19 @@ tensors runs the plain version; a wrapper given CUDA tensors launches
 the kernel, counts the launch in ``LAUNCHES`` and raises if the build or
 the launch fails. Nothing falls back from one to the other.
 
+``wave_mt`` and ``wave_sweep`` take a row table of float32 or of bf16
+(the tracer's ``rows_bf16``): the kernels widen each bf16 value to
+float32 as they load it and run the float32 arithmetic, and the plain
+versions upcast the gathered rows before ``mt_rows``, so both compute
+in float32 on the quantized values, as the JAX package does when it
+promotes bf16 x float32. ``wave_mt(order=)`` meets the rays in the
+order given (``dedup_order``: sorted by cluster, the tracer's
+``wave_dedup`` on the card), with the same result. ``dedup_rows`` is the
+JAX package's per-wave row dedup (``_dedup_rows``), the tracer's plain
+``wave_dedup``. Each (kernel, row type, ordered) launch has its own key
+in ``LAUNCHES``: ``wave_mt``, ``wave_mt_bf16``, ``wave_mt_ordered``,
+``wave_mt_bf16_ordered``, ``wave_sweep``, ``wave_sweep_bf16``.
+
 ``wave_mt`` and ``wave_sweep`` update the state (best t, cluster, lane
 of every ray) in place, and so do their plain versions. The plain
 versions compact the rays that have work by index, which costs a host
@@ -91,8 +104,11 @@ SWEEP_WARPS = 8      # csrc/wave.cu SWEEP_WARPS: warps a block of wave_sweep, a 
 SWEEP_WAVES = 4      # waves of resident blocks a sweep aims at
 SWEEP_MIN_ROWS = 2   # rows a warp (a block, rows staged) takes at least, on average
 NO_KEY = (1 << 63) - 1  # wave_sweep_plain's key of a ray without a hit
+DEAD_CLUSTER = (1 << 31) - 1  # dedup_order's cluster of a dead ray: past every id
 
-LAUNCHES = {"row_gather": 0, "wave_mt": 0, "wave_sweep": 0}
+LAUNCHES = {"row_gather": 0, "wave_mt": 0, "wave_mt_bf16": 0, "wave_mt_ordered": 0,
+            "wave_mt_bf16_ordered": 0, "wave_sweep": 0, "wave_sweep_bf16": 0}
+ROW_TYPES = (torch.float32, torch.bfloat16)  # what wave_mt and wave_sweep take
 
 _lib = None
 _resident = {}  # (device index, kernel) -> (SMs, blocks resident on an SM)
@@ -109,12 +125,12 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.row_gather_launch.argtypes = [vp, vp, i32, vp, i32, vp]
-    lib.wave_mt_blocks_per_sm.argtypes = [vp]
-    lib.wave_mt_launch.argtypes = [vp, vp, vp, i32, vp, vp, i64, i64, i32, i32, i32, i32,
-                                   vp, vp, vp, vp]
-    lib.wave_sweep_blocks_per_sm.argtypes = [i32, vp]
-    lib.wave_sweep_launch.argtypes = [vp, vp, vp, i32, vp, i32, i32, i32, i32, vp, vp, vp,
-                                      vp, vp, vp]
+    lib.wave_mt_blocks_per_sm.argtypes = [i32, vp]
+    lib.wave_mt_launch.argtypes = [vp, vp, vp, i32, i32, vp, vp, i64, i64, i32, i32, i32, i32,
+                                   vp, vp, vp, vp, vp]
+    lib.wave_sweep_blocks_per_sm.argtypes = [i32, i32, vp]
+    lib.wave_sweep_launch.argtypes = [vp, vp, vp, i32, i32, vp, i32, i32, i32, i32, vp, vp,
+                                      vp, vp, vp, vp]
     for fn in (lib.row_gather_launch, lib.wave_mt_blocks_per_sm, lib.wave_mt_launch,
                lib.wave_sweep_blocks_per_sm, lib.wave_sweep_launch):
         fn.restype = i32
@@ -131,15 +147,17 @@ def _want(name, x, shape, dtype):
         raise ValueError(f"{name} must be {tuple(shape)} {dtype}, got {tuple(x.shape)} {x.dtype}")
 
 
-def _check_table(table, packed, strided=()):
+def _check_table(table, packed, strided=(), dtypes=ROW_TYPES):
     """The (K, 9, C) row table and the (name, tensor) pairs that go with
-    it: one device and a contiguous table (a slice of one is refused
-    everywhere, so that a caller meets the kernels' rule on the CPU
-    too); for the kernels a 16-byte aligned table of C = 128 (a bulk
-    copy takes whole 16-byte units) and contiguous ``packed`` tensors
-    (``strided`` ones carry their own strides)."""
-    if table.dtype != torch.float32 or table.dim() != 3 or table.shape[1] != 9:
-        raise ValueError(f"table must be (K, 9, C) float32, got {tuple(table.shape)} {table.dtype}")
+    it: a row type of ``dtypes``, one device and a contiguous table (a
+    slice of one is refused everywhere, so that a caller meets the
+    kernels' rule on the CPU too); for the kernels a 16-byte aligned
+    table of C = 128 (a bulk copy takes whole 16-byte units) and
+    contiguous ``packed`` tensors (``strided`` ones carry their own
+    strides)."""
+    if table.dtype not in dtypes or table.dim() != 3 or table.shape[1] != 9:
+        raise ValueError(f"table must be (K, 9, C) of {[str(t) for t in dtypes]}, got "
+                         f"{tuple(table.shape)} {table.dtype}")
     if any(x.device != table.device for _, x in (*packed, *strided)):
         raise ValueError("the table and every other tensor must lie on one device")
     if table.requires_grad or any(x.requires_grad for _, x in (*packed, *strided)):
@@ -196,7 +214,7 @@ def _check_gather(idx, table, variant):
     if idx.dim() != 1:
         raise ValueError(f"idx must be (R,), got {tuple(idx.shape)}")
     _want("idx", idx, idx.shape, torch.int32)
-    _check_table(table, [("idx", idx)])
+    _check_table(table, [("idx", idx)], dtypes=(torch.float32,))
 
 
 def row_gather_plain(idx, table, variant: str = "direct"):
@@ -232,7 +250,8 @@ def row_gather(idx, table, variant: str = "direct"):
 def mt_rows(p, d, rows, best, live, cand_cids=None, cand_base=None):
     """Dense per-ray MT against each ray's own cluster row(s).
 
-    p, d: (N, 3); rows: (N, W, 9, C) float32 component rows (a|e0|e1).
+    p, d: (N, 3); rows: (N, W, 9, C) float32 component rows (a|e0|e1)
+    (bf16 rows are upcast by the caller: the arithmetic is float32).
     best: (t, cid, lane), each (N,): the winner is a (cluster, lane)
     pair, mapped to a triangle id once per trace.
     live: (N,) ray mask or (N, W, C) candidate mask; dead rays and
@@ -348,9 +367,12 @@ def _occupancy(dev: torch.device, kernel: str, query):
     return _resident[idx, kernel]
 
 
-def resident(lib, dev: torch.device):
-    """(SMs, wave_mt blocks resident on an SM) of a CUDA device."""
-    return _occupancy(dev, "wave_mt", lib.wave_mt_blocks_per_sm)
+def resident(lib, dev: torch.device, dtype=torch.float32):
+    """(SMs, wave_mt blocks resident on an SM) of a CUDA device, for rows
+    of ``dtype``."""
+    bf16 = int(dtype == torch.bfloat16)
+    return _occupancy(dev, f"wave_mt {dtype}",
+                      lambda blocks: lib.wave_mt_blocks_per_sm(bf16, blocks))
 
 
 def _gated_columns(col_t, col_c, best_t, best_c, any_hit, k):
@@ -359,18 +381,93 @@ def _gated_columns(col_t, col_c, best_t, best_c, any_hit, k):
     return live_columns(col_t, best_t, best_c, any_hit) & (col_c >= 0) & (col_c < k)
 
 
-def wave_groups(col_t, col_c, best_t, best_c, any_hit, k: int, g: int):
-    """Rows ``wave_mt`` fetches with a gate of g rays a warp: one for each
-    (warp, column, cluster) that holds a live column."""
-    live = _gated_columns(col_t, col_c, best_t, best_c, any_hit, k)
-    ray, w = live.nonzero(as_tuple=True)
-    keys = ((ray // g) * col_t.shape[1] + w) * k + col_c[ray, w].long()
+def _lane_warps(n, g, order, device):
+    """(rays the lanes take, each one's warp): lane ``at`` takes ray
+    ``at``, or ``order[at]``, and lies in warp at // g."""
+    if order is None:
+        ray = torch.arange(n, device=device)
+    else:
+        ray = order.long()
+    return ray, torch.arange(ray.shape[0], device=device) // g
+
+
+def wave_groups(col_t, col_c, best_t, best_c, any_hit, k: int, g: int, order=None):
+    """Rows ``wave_mt`` fetches with a gate of g rays a warp (meeting the
+    rays in ``order`` when given): one for each (warp, column, cluster)
+    that holds a live column."""
+    lane_ray, lane_warp = _lane_warps(col_t.shape[0], g, order, col_t.device)
+    live = _gated_columns(col_t, col_c, best_t, best_c, any_hit, k)[lane_ray]
+    at, w = live.nonzero(as_tuple=True)
+    keys = (lane_warp[at] * col_t.shape[1] + w) * k + col_c[lane_ray[at], w].long()
     return int(torch.unique(keys).numel())
 
 
-def _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l):
+def dedup_order(col_c, live):
+    """The rays of a wave sorted by the cluster of their column (the live
+    ones, each cluster's rays by index), then the dead ones: one device
+    sort of (live ? cluster : 2^31 - 1) << 32 | ray, no host sync. col_c
+    and live (n,); returns (n,) int32 for ``wave_mt(order=)``."""
+    ray = torch.arange(col_c.shape[0], device=col_c.device)
+    key = (torch.where(live, col_c.long(), DEAD_CLUSTER) << 32) | ray
+    return (torch.sort(key).values & 0xFFFFFFFF).int()
+
+
+def dedup_rows(rows_tbl, c1, live1, route: str, d_max: int):
+    """The JAX package's ``_dedup_rows``: the rows of clusters c1 (ch,)
+    for the rays of one wave, each DISTINCT cluster's row fetched once
+    and routed to the rays that want it. route "gather": gathered again
+    from the (ch,)-row compact buffer by each ray's rank; "onehot": a
+    (ch, d_max) one-hot float32 product over the compact buffer (NaN and
+    infinities zeroed first, one 1.0 term an output: exact, but a -0.0
+    comes out as +0.0, as in JAX), or the direct gather when the wave
+    holds more than d_max distinct clusters. A dead lane (live1 False)
+    gets whatever row JAX gives it (zeros under the one-hot product); the
+    caller masks it. Returns (ch, 9, C) in the table's type.
+
+    The ray slot rides in the low bits of the cluster-id sort key, so
+    the group ranks (a cumulative sum of first-of-group flags) scatter
+    straight back to ray order. The keys are int64 here, so no scene is
+    too large for them (JAX's int32 key gives up above 2^31 / 2^sbits
+    clusters and gathers directly; the rows are the same either way)."""
+    K = rows_tbl.shape[0]
+    ch = c1.shape[0]
+    dev = c1.device
+    sbits = max(1, (ch - 1).bit_length())
+    ids = torch.where(live1, c1.long(), K)  # dead lanes sort last, past every id
+    key = (ids << sbits) | torch.arange(ch, device=dev)
+    skey = torch.sort(key).values
+    sid = skey >> sbits
+    slot = skey & ((1 << sbits) - 1)
+    prev = torch.cat([torch.full((1,), -1, dtype=sid.dtype, device=dev), sid[:-1]])
+    uniq = (sid != prev) & (sid < K)
+    # the cumulative sum of first-of-group flags is the group's ordinal for
+    # every element of the group (later members add 0)
+    rank = torch.cumsum(uniq.long(), 0) - 1
+    rk_ray = torch.zeros((ch,), dtype=torch.long, device=dev)
+    rk_ray[slot] = rank
+    d_eff = ch if route == "gather" else min(d_max, ch)
+    uniq_buf = torch.full((d_eff + 1,), K, dtype=torch.long, device=dev)
+    uniq_buf[torch.where(uniq, rank, d_eff).clamp(max=d_eff)] = sid  # the last slot: the drops
+    uniq_buf = uniq_buf[:d_eff]
+    if route == "gather":
+        return rows_tbl[uniq_buf.clamp(max=K - 1)][rk_ray]
+    if int(uniq.sum()) > d_eff:  # the compact buffer overflows: gather directly
+        return rows_tbl[torch.where(live1, c1.long(), 0)]
+    crow = rows_tbl[uniq_buf.clamp(max=K - 1)]  # (d_eff, 9, C)
+    flat = torch.nan_to_num(crow.reshape(d_eff, -1).float(), nan=0.0, posinf=0.0, neginf=0.0)
+    oh = ((rk_ray[:, None] == torch.arange(d_eff, device=dev)[None, :])
+          & live1[:, None]).float()
+    return (oh @ flat).reshape((ch,) + tuple(rows_tbl.shape[1:])).to(rows_tbl.dtype)
+
+
+def _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l, order=None):
     named = _check_state(p, d, best_t, best_c, best_l)
     _check_columns(col_t, col_c, p.shape[0])
+    if order is not None:
+        if order.dim() != 1 or order.shape[0] > p.shape[0]:
+            raise ValueError(f"order must be (m <= {p.shape[0]},), got {tuple(order.shape)}")
+        _want("order", order, order.shape, torch.int32)
+        named.append(("order", order))
     _check_table(table, named, strided=[("col_t", col_t), ("col_c", col_c)])
 
 
@@ -380,50 +477,70 @@ def _check_gate(gate):
 
 
 def wave_mt_plain(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
-                  chunk: int = WAVE_CHUNK, gate: int | None = None):
+                  chunk: int = WAVE_CHUNK, gate: int | None = None, order=None,
+                  dedup: tuple | None = None):
     """Plain PyTorch version of ``wave_mt``: the rays with a live column,
     compacted by index (a host sync), ``chunk`` at a time: gate, masked
-    row gather (a dead column reads row 0 and is masked), ``mt_rows``,
-    and the winners written back by index.
+    row gather (a dead column reads row 0 and is masked), the rows upcast
+    to float32, ``mt_rows``, and the winners written back by index.
+    order: only the rays it lists (in any order) are met; the result does
+    not depend on the order. dedup=(route, d_max), for one column (W = 1):
+    the rows come through ``dedup_rows`` (the tracer's plain wave_dedup),
+    fetched once a distinct cluster of the chunk; the same rows, so the
+    same state.
 
-    gate=G walks the kernel's decomposition instead: rays in warps of G,
-    per column the live rays of a warp grouped by cluster and each
-    group's row gathered once, ``mt_rows`` of every (ray, column) against
-    the best t of the call, and each ray's winners merged by the least
-    (t, w * C + lane). It gives the same state (see the module's note)."""
-    _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l)
+    gate=G walks the kernel's decomposition instead: the lanes (rays in
+    their order) in warps of G, per column the live rays of a warp
+    grouped by cluster and each group's row gathered once, ``mt_rows`` of
+    every (ray, column) against the best t of the call, and each ray's
+    winners merged by the least (t, w * C + lane). It gives the same
+    state (see the module's note)."""
+    _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l, order)
     _check_gate(gate)
+    if dedup is not None and (gate is not None or col_t.shape[1] != 1):
+        raise ValueError("dedup takes one column and no gate")
     if gate is not None:
-        return _wave_mt_gated(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, gate)
+        return _wave_mt_gated(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, gate,
+                              order)
     C = table.shape[2]
-    idx = live_columns(col_t, best_t, best_c, any_hit).any(dim=1).nonzero()[:, 0]
+    live_ray = live_columns(col_t, best_t, best_c, any_hit).any(dim=1)
+    if order is not None:  # only the listed rays
+        live_ray = live_ray & torch.zeros_like(live_ray).index_fill_(0, order.long(), True)
+    idx = live_ray.nonzero()[:, 0]
     for i0 in range(0, idx.shape[0], chunk):
         sel = idx[i0 : i0 + chunk]
         c = col_c[sel]
         cur = (best_t[sel], best_c[sel], best_l[sel])
         live = live_columns(col_t[sel], cur[0], cur[1], any_hit)
-        rows = table[torch.where(live, c, 0).long()]  # (m, W, 9, C)
-        new = mt_rows(p[sel], d[sel], rows, cur, live[:, :, None].expand(-1, -1, C),
+        if dedup is not None:
+            rows = dedup_rows(table, c[:, 0], live[:, 0], *dedup)[:, None]
+        else:
+            rows = table[torch.where(live, c, 0).long()]  # (m, W, 9, C)
+        new = mt_rows(p[sel], d[sel], rows.float(), cur, live[:, :, None].expand(-1, -1, C),
                       cand_cids=c)
         best_t[sel], best_c[sel], best_l[sel] = new
 
 
-def _wave_mt_gated(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, g):
+def _wave_mt_gated(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, g, order):
     K, _, C = table.shape
     n, W = col_t.shape
-    live = _gated_columns(col_t, col_c, best_t, best_c, any_hit, K)
+    lane_ray, lane_warp = _lane_warps(n, g, order, p.device)
+    listed = torch.zeros((n,), dtype=torch.bool, device=p.device)
+    listed[lane_ray] = True
+    warp = torch.zeros((n,), dtype=torch.long, device=p.device)
+    warp[lane_ray] = lane_warp
+    live = _gated_columns(col_t, col_c, best_t, best_c, any_hit, K) & listed[:, None]
     start = best_t.clone()  # every column meets the best t of the call
     win_t = torch.full((n,), T_MAX, dtype=torch.float32, device=p.device)
     win_flat = torch.full((n,), 1 << 30, dtype=torch.int32, device=p.device)
     win_c = torch.full((n,), -1, dtype=torch.int32, device=p.device)
-    warp = torch.arange(n, device=p.device) // g
     for w in range(W):
         sel = live[:, w].nonzero()[:, 0]
         if sel.numel() == 0:
             continue
         cid = col_c[sel, w]
         groups, member = torch.unique(warp[sel] * K + cid.long(), return_inverse=True)
-        rows = table[groups % K]                      # one row a group
+        rows = table[groups % K].float()              # one row a group
         m = sel.shape[0]
         fresh = (start[sel], torch.full((m,), -1, dtype=torch.int32, device=p.device),
                 torch.zeros((m,), dtype=torch.int32, device=p.device))
@@ -441,37 +558,46 @@ def _wave_mt_gated(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, g
     best_l.copy_(torch.where(won, win_flat % C, best_l))
 
 
+def _launch_key(kernel, table, ordered=False):
+    """The LAUNCHES key of a launch of ``kernel`` on ``table``'s row type."""
+    return (kernel + ("_bf16" if table.dtype == torch.bfloat16 else "")
+            + ("_ordered" if ordered else ""))
+
+
 def wave_mt(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
-            gate: int | None = None):
+            gate: int | None = None, order=None):
     """One wave over W front-table columns, the state updated in place.
 
-    p, d (N, 3); table (K, 9, C); col_t (N, W) float32 tnear and col_c
-    (N, W) int32 cluster ids (a column range of the front table: any row
-    stride); best_t (N,) float32, best_c and best_l (N,) int32. Every
-    live column of a ray (col_t < best_t, col_t < T_MAX, and best_c < 0
-    when any_hit) is tested against the best t the ray had at the call;
-    the minimum t wins, among equal t the lowest w * C + lane. The CUDA
-    kernel for CUDA tensors, with G rays a warp from ``gate_plan`` unless
-    ``gate`` names one of GATES; ``wave_mt_plain`` for CPU tensors."""
+    p, d (N, 3); table (K, 9, C) float32 or bf16; col_t (N, W) float32
+    tnear and col_c (N, W) int32 cluster ids (a column range of the front
+    table: any row stride); best_t (N,) float32, best_c and best_l (N,)
+    int32. Every live column of a ray (col_t < best_t, col_t < T_MAX, and
+    best_c < 0 when any_hit) is tested against the best t the ray had at
+    the call; the minimum t wins, among equal t the lowest w * C + lane.
+    order (m,) int32, m <= N distinct rays: the lanes meet those rays, in
+    that order (``dedup_order``), and no other. The CUDA kernel for CUDA
+    tensors, with G rays a warp from ``gate_plan`` unless ``gate`` names
+    one of GATES; ``wave_mt_plain`` for CPU tensors."""
     if not p.is_cuda:
         return wave_mt_plain(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
-                             gate=gate)
-    _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l)
+                             gate=gate, order=order)
+    _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l, order)
     _check_gate(gate)
     lib = build()
-    n = p.shape[0]
+    n = p.shape[0] if order is None else order.shape[0]  # lanes
     if n == 0:
         return
-    g = gate or gate_plan(n, *resident(lib, p.device))["g"]
+    g = gate or gate_plan(n, *resident(lib, p.device, table.dtype))["g"]
     err = lib.wave_mt_launch(
-        p.data_ptr(), d.data_ptr(), table.data_ptr(), table.shape[0],
-        col_t.data_ptr(), col_c.data_ptr(), col_t.stride(0), col_c.stride(0),
+        p.data_ptr(), d.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
+        table.shape[0], col_t.data_ptr(), col_c.data_ptr(), col_t.stride(0), col_c.stride(0),
         col_t.shape[1], int(bool(any_hit)), n, g,
+        order.data_ptr() if order is not None else None,
         best_t.data_ptr(), best_c.data_ptr(), best_l.data_ptr(), _stream(p),
     )
     if err != 0:
         raise RuntimeError(f"wave_mt launch failed: cudaError {err}")
-    LAUNCHES["wave_mt"] += 1
+    LAUNCHES[_launch_key("wave_mt", table, order is not None)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -514,11 +640,12 @@ def sweep_plan(m: int, k: int, sms: int, blocks_per_sm: int) -> dict:
             "blocks": tiles * splits, "resident_blocks": resident}
 
 
-def sweep_resident(lib, dev: torch.device, tile: int):
+def sweep_resident(lib, dev: torch.device, tile: int, dtype=torch.float32):
     """(SMs, wave_sweep blocks resident on an SM) of a CUDA device for a
-    tile of ``tile`` rays."""
-    return _occupancy(dev, f"wave_sweep tile {tile}",
-                      lambda blocks: lib.wave_sweep_blocks_per_sm(tile, blocks))
+    tile of ``tile`` rays and rows of ``dtype``."""
+    bf16 = int(dtype == torch.bfloat16)
+    return _occupancy(dev, f"wave_sweep tile {tile} {dtype}",
+                      lambda blocks: lib.wave_sweep_blocks_per_sm(tile, bf16, blocks))
 
 
 def _tile_keys(p, d, table, start, per):
@@ -534,7 +661,7 @@ def _tile_keys(p, d, table, start, per):
     step = max(1, FB_ELEMS // (n * per * C)) * per
     live = torch.ones((n,), dtype=torch.bool, device=dev)
     for a in range(0, K, step):
-        rows = table[a : min(a + step, K)]
+        rows = table[a : min(a + step, K)].float()
         t_m = _masked_t(p, d, rows[None].expand(n, -1, -1, -1), start, live)
         ranges = -(-rows.shape[0] // per)
         pad = ranges * per - rows.shape[0]  # a short last range
@@ -573,7 +700,7 @@ def wave_sweep_plain(p, d, table, idx, best_t, best_c, best_l, fb_cc: int = 0,
     """Plain PyTorch version of ``wave_sweep``: up to FB_RAYS of the
     listed rays at a time against ascending blocks of CC clusters
     (fb_cc, or as many as FB_ELEMS pairs allow), the last block
-    overlapping the one before.
+    overlapping the one before; each block's rows upcast to float32.
 
     plan (from ``sweep_plan``) walks the kernel's decomposition instead:
     ray tiles x cluster ranges, each (tile, range) against the best t of
@@ -592,7 +719,7 @@ def wave_sweep_plain(p, d, table, idx, best_t, best_c, best_l, fb_cc: int = 0,
         live = torch.ones((m,), dtype=torch.bool, device=p.device)
         for k in range(-(-K // CC)):
             cstart = min(k * CC, K - CC)
-            rows = table[cstart : cstart + CC][None].expand(m, -1, -1, -1)
+            rows = table[cstart : cstart + CC].float()[None].expand(m, -1, -1, -1)
             base = torch.full((m,), cstart, dtype=torch.int32, device=p.device)
             cur = mt_rows(rp, rd, rows, cur, live, cand_base=base)
         best_t[sel], best_c[sel], best_l[sel] = cur
@@ -615,8 +742,9 @@ def _sweep_scratch(dev: torch.device, m: int, tiles: int):
 
 def wave_sweep(p, d, table, idx, best_t, best_c, best_l):
     """The exact fallback for the rays idx (m,) int32: every cluster of
-    the table; the hit of least t below the ray's best t wins, among
-    equal t the lowest cluster, then lane. The state is updated in place.
+    the table (float32 or bf16 rows); the hit of least t below the ray's
+    best t wins, among equal t the lowest cluster, then lane. The state
+    is updated in place.
     The CUDA kernel for CUDA tensors, one launch cut as ``sweep_plan``
     says; ``wave_sweep_plain`` for CPU tensors."""
     if not p.is_cuda:
@@ -626,13 +754,13 @@ def wave_sweep(p, d, table, idx, best_t, best_c, best_l):
     m, k = idx.shape[0], table.shape[0]
     if m == 0 or k == 0:
         return
-    plan = sweep_plan(m, k, *sweep_resident(lib, p.device, sweep_tile(m)))
+    plan = sweep_plan(m, k, *sweep_resident(lib, p.device, sweep_tile(m), table.dtype))
     keys, done = _sweep_scratch(p.device, m, plan["tiles"])
     err = lib.wave_sweep_launch(
-        p.data_ptr(), d.data_ptr(), table.data_ptr(), k, idx.data_ptr(), m, plan["tile"],
-        plan["splits"], plan["per_block"], best_t.data_ptr(), best_c.data_ptr(),
-        best_l.data_ptr(), keys.data_ptr(), done.data_ptr(), _stream(p),
+        p.data_ptr(), d.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16), k,
+        idx.data_ptr(), m, plan["tile"], plan["splits"], plan["per_block"], best_t.data_ptr(),
+        best_c.data_ptr(), best_l.data_ptr(), keys.data_ptr(), done.data_ptr(), _stream(p),
     )
     if err != 0:
         raise RuntimeError(f"wave_sweep launch failed: cudaError {err}")
-    LAUNCHES["wave_sweep"] += 1
+    LAUNCHES[_launch_key("wave_sweep", table)] += 1

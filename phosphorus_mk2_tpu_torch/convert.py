@@ -22,30 +22,37 @@ from phosphorus_mk2_tpu_torch.device import resolve_device
 
 def scene_data_from_numpy(arrays: dict, static: dict, device="cuda") -> SceneData:
     """arrays: field name -> numpy array, for every array field of
-    SceneData, and ``bvh`` -> dict of numpy arrays (the tables of
-    ``attach_bvh``; tables the port does not read, such as the bf16
-    copies, are dropped, and the ``cluster_rows`` table is added); static: field name -> value for
+    SceneData, and ``bvh`` -> dict of numpy arrays (every table of
+    ``attach_bvh``; the ``cluster_rows`` and ``cluster_rows_bf16`` tables
+    are added when absent); static: field name -> value for
     SceneData.STATIC_FIELDS. Texture fields (atlas, info, proc tables,
     tangents and the texture ids) come across like any other array; an
-    f16 atlas stays f16."""
+    f16 atlas stays f16. A bfloat16 array (the JAX package's ``*_bf16``
+    tables reach numpy as ml_dtypes' bfloat16, which torch cannot take)
+    is carried bit for bit through a 16-bit integer view."""
     dev = resolve_device(device)
     names = {f.name for f in dataclasses.fields(SceneData)}
     unknown = (set(arrays) | set(static)) - names
     if unknown:
         raise ValueError(f"not SceneData fields: {sorted(unknown)}")
+
     def on_dev(v):
-        return torch.from_numpy(np.array(v)).to(dev)  # a writable copy
+        v = np.array(v)  # a writable copy
+        if v.dtype.name == "bfloat16":
+            return torch.from_numpy(v.view(np.int16)).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(v).to(dev)
 
     tensors = {k: on_dev(v) for k, v in arrays.items() if k != "bvh" and v is not None}
     if arrays.get("bvh") is not None:
-        bvh = {
-            k: np.asarray(v) for k, v in arrays["bvh"].items()
-            if not k.endswith("_bf16") and not k.startswith("ssc_")
-        }
+        bvh = {k: on_dev(v) for k, v in arrays["bvh"].items()}
         # the gathered layout of the same geometry, which attach_bvh adds
-        bvh.setdefault("cluster_rows", cluster_rows(
-            bvh["cluster_a"], bvh["cluster_e0"], bvh["cluster_e1"]))
-        tensors["bvh"] = {k: on_dev(v) for k, v in bvh.items()}
+        if "cluster_rows" not in bvh:
+            bvh["cluster_rows"] = torch.from_numpy(cluster_rows(
+                *(np.asarray(arrays["bvh"][k]) for k in ("cluster_a", "cluster_e0",
+                                                          "cluster_e1")))).to(dev)
+        if "cluster_rows_bf16" not in bvh:
+            bvh["cluster_rows_bf16"] = bvh["cluster_rows"].to(torch.bfloat16)
+        tensors["bvh"] = bvh
     fixed = {k: tuple(v) if k == "lobe_types_present" else v for k, v in static.items()}
     return SceneData(**tensors, **fixed)
 

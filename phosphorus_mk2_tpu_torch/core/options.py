@@ -60,8 +60,13 @@ class Options:
                                    # isotropic trilinear); the stand-in
                                    # for the reference's OIIO
                                    # EWA (src/material.cpp:127-129)
-    tracer_tune: dict | None = None  # cluster-tracer launch-count knobs
-                                   # (dense_waves/chunk/dense_chunk/
-                                   # expand_batch/slab_bf16), see
+    tracer_tune: dict | None = None  # cluster-tracer knobs (dense_waves/
+                                   # chunk/dense_chunk/expand_batch/
+                                   # front_k/sc_front/sc_topk/recompact/
+                                   # dense_k/fb_cc, and slab_bf16,
+                                   # front_levels, wave_dedup/dedup_d:
+                                   # exact; rows_bf16: bf16 rows, which
+                                   # changes images), a "shadow" sub-dict
+                                   # for the any-hit trace only; see
                                    # accel/cluster_traverse._trace; None
-                                   # = per-scene auto (measured policy)
+                                   # = the defaults

@@ -120,7 +120,32 @@
 // math, so t equals the plain PyTorch version's bit for bit. A winning t
 // of -0.0 is stored as +0.0 (the integer order of the reduction needs
 // it; as floats the two are equal), and the plain mt_rows does the same.
+//
+// Row types. wave_mt and both wave_sweep kernels are templates on the
+// element type of the row table: float, or __nv_bfloat16 (the tracer's
+// rows_bf16: 2,304 bytes a row instead of 4,608). A bf16 value is widened
+// to float exactly as it is loaded (__bfloat162float), and everything
+// after the load is the float kernel's: the same Moller-Trumbore, tie
+// rule and reductions. The JAX package promotes bf16 x float32 to
+// float32, so its arithmetic too is float32 on the quantized values, and
+// the plain versions upcast the gathered rows before mt_rows. The staged
+// sweep skips a quad whose four first edges are zero as loaded (bf16
+// zero widens to float zero, so the test is the same either side of the
+// widening). The loads of a bf16 row are simple: a lane reads single
+// halves in wave_mt and the warp sweep (64 bytes a warp a load), and the
+// staged sweep reads a thread's four triangles of a component as one
+// 8-byte load; a faster bf16 fetch is later work.
+//
+// Ray order. wave_mt takes an optional list `order` of m distinct rays:
+// lane `at` then gates ray order[at] instead of ray `at` (its origin,
+// direction, columns and state all read through that index, and its
+// winner written back there). The tracer's wave_dedup passes the rays
+// sorted by the cluster of their column, so that the rays of a warp want
+// few clusters and __match_any_sync's groups fetch each row once for many
+// rays. A ray's winner is the least (t, flat) over its own live pairs
+// whichever warp meets it, so the state is the unordered launch's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -147,16 +172,33 @@ constexpr int WARP_TILE = 4;           //   and rays a tile
 constexpr int SWEEP_THREADS = 128;     // wave_sweep, rows staged: threads per block
 constexpr int STAGED_TILE = 32;        //   and rays a tile
 
+// A row element as a float: the identity, or the exact widening of a bf16.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Four consecutive elements (16-byte aligned for float, 8 for bf16) of a
+// row staged in shared memory, as floats: one LDS.128 or one LDS.64.
+__device__ __forceinline__ float4 load4(const float* q) {
+  return *reinterpret_cast<const float4*>(q);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* q) {
+  const uint2 u = *reinterpret_cast<const uint2*>(q);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // The row fetch: lane l takes, of each of the 9 component rows, columns
 // l, l + 32, l + 64 and l + 96, so every load of the warp is one
-// 128-byte line. `row` points at a row in device memory or at a staged
-// copy of one in shared memory.
-__device__ __forceinline__ void fetch_row(const float* row, int lane,
+// 128-byte line (64 bytes for bf16). `row` points at a row in device
+// memory or at a staged copy of one in shared memory.
+template <typename T>
+__device__ __forceinline__ void fetch_row(const T* row, int lane,
                                           float (&v)[COMPS][PER_LANE]) {
 #pragma unroll
   for (int r = 0; r < COMPS; ++r) {
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) v[r][i] = row[r * C + i * 32 + lane];
+    for (int i = 0; i < PER_LANE; ++i) v[r][i] = widen(row[r * C + i * 32 + lane]);
   }
 }
 
@@ -352,12 +394,15 @@ __device__ __forceinline__ void test_group(const float (&v)[COMPS][PER_LANE], in
   }
 }
 
+// Lanes run over n entries: rays 0..n-1, or with `order` the n rays
+// order[0..n-1].
+template <typename T>
 __global__ void __launch_bounds__(MT_WARPS * 32)
 wave_mt_kernel(const float* __restrict__ p, const float* __restrict__ d,
-               const float* __restrict__ table, int k,
+               const T* __restrict__ table, int k,
                const float* __restrict__ col_t, const int* __restrict__ col_c,
                long long stride_t, long long stride_c, int w, int any_hit, int n, int g,
-               float* best_t, int* best_c, int* best_l) {
+               const int* __restrict__ order, float* best_t, int* best_c, int* best_l) {
   __shared__ float s_ray[MT_WARPS * 32][7];     // origin, direction, best t at the call
   __shared__ int s_win[3][MT_WARPS * 32];       // the ray's least (t bits, flat), cluster
   __shared__ int s_cid[MT_WARPS * 32];          // items: a group's cluster,
@@ -370,7 +415,7 @@ wave_mt_kernel(const float* __restrict__ p, const float* __restrict__ d,
   const int lane = slot & 31;
   const long long at = static_cast<long long>(blockIdx.x * MT_WARPS + warp) * g + lane;
   const bool mine = lane < g && at < n;
-  const int ray = mine ? static_cast<int>(at) : 0;
+  const int ray = mine ? (order != nullptr ? order[at] : static_cast<int>(at)) : 0;
   float bt = 0.f;  // the ray's best t, read once: every column meets this value
   bool open = false;
   if (mine) {
@@ -482,9 +527,10 @@ __device__ __forceinline__ void finish_tile(int tile, int j0, int nr, int splits
 // ray over the warp once, at the end; the block's warps meet in shared
 // memory, and the block issues one atomicMin a ray that found a hit.
 // Every branch on nr or r is uniform over the block.
+template <typename T>
 __global__ void __launch_bounds__(SWEEP_WARPS * 32)
 wave_sweep_warp_kernel(const float* __restrict__ p, const float* __restrict__ d,
-                       const float* __restrict__ table, int k, const int* __restrict__ idx,
+                       const T* __restrict__ table, int k, const int* __restrict__ idx,
                        int m, int splits, int per_block, float* best_t, int* best_c,
                        int* best_l, unsigned long long* keys, unsigned* done) {
   constexpr int R = WARP_TILE;
@@ -542,10 +588,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 // Start the copy of one row into shared memory, 16 bytes a copy, and
 // close the thread's group of copies.
-__device__ __forceinline__ void stage_cluster(float (*dst)[C], const float* __restrict__ row) {
-  constexpr int QUADS = ROW / 4;
-  for (int q = threadIdx.x; q < QUADS; q += blockDim.x) {
-    cp_async16(&dst[0][0] + 4 * q, row + 4 * q);
+template <typename T>
+__device__ __forceinline__ void stage_cluster(T (*dst)[C], const T* __restrict__ row) {
+  constexpr int PER_COPY = 16 / static_cast<int>(sizeof(T));  // elements a copy
+  constexpr int COPIES = ROW / PER_COPY;
+  for (int q = threadIdx.x; q < COPIES; q += blockDim.x) {
+    cp_async16(&dst[0][0] + PER_COPY * q, row + PER_COPY * q);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -573,15 +621,16 @@ __device__ __forceinline__ float quad(const float4& x, int q) {
 // (t, flat) of its share; the slices of a ray meet in a shared-memory
 // atomicMin, and the block issues one atomicMin a ray with a hit. A
 // thread past the tile's rays gets best t 0 and never hits.
+template <typename T>
 __global__ void __launch_bounds__(SWEEP_THREADS, 4)
 wave_sweep_staged_kernel(const float* __restrict__ p, const float* __restrict__ d,
-                         const float* __restrict__ table, int k, const int* __restrict__ idx,
+                         const T* __restrict__ table, int k, const int* __restrict__ idx,
                          int m, int splits, int per_block, float* best_t, int* best_c,
                          int* best_l, unsigned long long* keys, unsigned* done) {
   constexpr int RT = STAGED_TILE;
   constexpr int S = SWEEP_THREADS / RT;
   static_assert(RT == 32 && (C / 4) / S == 32 / 4, "a warp a slice, a lane a triangle of it");
-  __shared__ __align__(16) float s[COMPS][C];
+  __shared__ __align__(16) T s[COMPS][C];
   __shared__ unsigned long long s_key[RT];
   const int tile = blockIdx.x / splits;
   const int j0 = tile * RT;
@@ -607,10 +656,11 @@ wave_sweep_staged_kernel(const float* __restrict__ p, const float* __restrict__ 
   for (int c = c0; c < c1; ++c) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();  // every thread's copies of this row have landed
-    const float(*r)[C] = s;
+    const T(*r)[C] = s;
     // bit 4 j set: quad j of the slice holds a triangle with e0 != 0
-    unsigned quads =
-        __ballot_sync(FULL, r[3][mine] != 0.0f || r[4][mine] != 0.0f || r[5][mine] != 0.0f);
+    unsigned quads = __ballot_sync(FULL, widen(r[3][mine]) != 0.0f ||
+                                             widen(r[4][mine]) != 0.0f ||
+                                             widen(r[5][mine]) != 0.0f);
     quads |= quads >> 1;
     quads |= quads >> 2;
     quads &= 0x11111111u;
@@ -618,15 +668,15 @@ wave_sweep_staged_kernel(const float* __restrict__ p, const float* __restrict__ 
     while (quads != 0) {
       const int i = 4 * (slice + S * ((__ffs(quads) - 1) >> 2));  // ascending
       quads &= quads - 1;
-      const float4 ax = *reinterpret_cast<const float4*>(&r[0][i]);
-      const float4 ay = *reinterpret_cast<const float4*>(&r[1][i]);
-      const float4 az = *reinterpret_cast<const float4*>(&r[2][i]);
-      const float4 e0x = *reinterpret_cast<const float4*>(&r[3][i]);
-      const float4 e0y = *reinterpret_cast<const float4*>(&r[4][i]);
-      const float4 e0z = *reinterpret_cast<const float4*>(&r[5][i]);
-      const float4 e1x = *reinterpret_cast<const float4*>(&r[6][i]);
-      const float4 e1y = *reinterpret_cast<const float4*>(&r[7][i]);
-      const float4 e1z = *reinterpret_cast<const float4*>(&r[8][i]);
+      const float4 ax = load4(&r[0][i]);
+      const float4 ay = load4(&r[1][i]);
+      const float4 az = load4(&r[2][i]);
+      const float4 e0x = load4(&r[3][i]);
+      const float4 e0y = load4(&r[4][i]);
+      const float4 e0z = load4(&r[5][i]);
+      const float4 e1x = load4(&r[6][i]);
+      const float4 e1y = load4(&r[7][i]);
+      const float4 e1z = load4(&r[8][i]);
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         float t;
@@ -676,51 +726,99 @@ extern "C" int row_gather_launch(const int* idx, const float* table, int r, floa
 }
 
 // wave_mt blocks (of MT_WARPS warps) resident on one SM of the current
-// device: the host's gate plan reads it once a device.
-extern "C" int wave_mt_blocks_per_sm(int* blocks) {
+// device for the row type (bf16 != 0: the __nv_bfloat16 instance): the
+// host's gate plan reads it once a device and type.
+extern "C" int wave_mt_blocks_per_sm(int bf16, int* blocks) {
   return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wave_mt_kernel, MT_WARPS * 32, 0));
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 blocks, wave_mt_kernel<__nv_bfloat16>, MT_WARPS * 32, 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, wave_mt_kernel<float>,
+                                                           MT_WARPS * 32, 0));
 }
 
-// p, d (n, 3); table (k, 9, 128); col_t, col_c: w columns of n rows with
-// unit column stride and the given row strides (in elements); best_t,
-// best_c, best_l (n,), updated in place; g (8, 16 or 32) rays a warp.
-extern "C" int wave_mt_launch(const float* p, const float* d, const float* table, int k,
-                              const float* col_t, const int* col_c, long long stride_t,
-                              long long stride_c, int w, int any_hit, int n, int g,
-                              float* best_t, int* best_c, int* best_l, void* stream) {
-  if (g != 8 && g != 16 && g != 32) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int launch_wave_mt(const float* p, const float* d, const void* table, int k,
+                   const float* col_t, const int* col_c, long long stride_t,
+                   long long stride_c, int w, int any_hit, int n, int g, const int* order,
+                   float* best_t, int* best_c, int* best_l, cudaStream_t s) {
   const int warps = (n + g - 1) / g;
   const int blocks = (warps + MT_WARPS - 1) / MT_WARPS;
-  wave_mt_kernel<<<blocks, MT_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, d, table, k, col_t, col_c, stride_t, stride_c, w, any_hit, n, g, best_t, best_c,
-      best_l);
+  wave_mt_kernel<T><<<blocks, MT_WARPS * 32, 0, s>>>(
+      p, d, static_cast<const T*>(table), k, col_t, col_c, stride_t, stride_c, w, any_hit, n,
+      g, order, best_t, best_c, best_l);
   return static_cast<int>(cudaGetLastError());
 }
 
-// wave_sweep blocks resident on one SM of the current device for a tile
-// of r rays (4: a warp a tile; 32: rows staged for a block): the host's
-// sweep plan reads it once a device and tile.
-extern "C" int wave_sweep_blocks_per_sm(int r, int* blocks) {
+// p, d (rays, 3); table (k, 9, 128) of float, or of bf16 when bf16 != 0;
+// col_t, col_c: w columns a ray with unit column stride and the given row
+// strides (in elements); best_t, best_c, best_l (rays,), updated in
+// place; g (8, 16 or 32) rays a warp. Lanes run over n entries: rays
+// 0..n-1 when order is null, else the n distinct rays order[0..n-1].
+extern "C" int wave_mt_launch(const float* p, const float* d, const void* table, int bf16,
+                              int k, const float* col_t, const int* col_c, long long stride_t,
+                              long long stride_c, int w, int any_hit, int n, int g,
+                              const int* order, float* best_t, int* best_c, int* best_l,
+                              void* stream) {
+  if (g != 8 && g != 16 && g != 32) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_wave_mt<__nv_bfloat16>(p, d, table, k, col_t, col_c, stride_t, stride_c,
+                                              w, any_hit, n, g, order, best_t, best_c, best_l, s)
+              : launch_wave_mt<float>(p, d, table, k, col_t, col_c, stride_t, stride_c, w,
+                                      any_hit, n, g, order, best_t, best_c, best_l, s);
+}
+
+template <typename T>
+int sweep_blocks_per_sm(int r, int* blocks) {
   switch (r) {
     case WARP_TILE:
       return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, wave_sweep_warp_kernel, SWEEP_WARPS * 32, 0));
+          blocks, wave_sweep_warp_kernel<T>, SWEEP_WARPS * 32, 0));
     case STAGED_TILE:
       return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, wave_sweep_staged_kernel, SWEEP_THREADS, 0));
+          blocks, wave_sweep_staged_kernel<T>, SWEEP_THREADS, 0));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// wave_sweep blocks resident on one SM of the current device for a tile
+// of r rays (4: a warp a tile; 32: rows staged for a block) and the row
+// type: the host's sweep plan reads it once a device, tile and type.
+extern "C" int wave_sweep_blocks_per_sm(int r, int bf16, int* blocks) {
+  return bf16 ? sweep_blocks_per_sm<__nv_bfloat16>(r, blocks)
+              : sweep_blocks_per_sm<float>(r, blocks);
+}
+
+template <typename T>
+int launch_wave_sweep(const float* p, const float* d, const void* table, int k,
+                      const int* idx, int m, int r, int splits, int per_block, float* best_t,
+                      int* best_c, int* best_l, unsigned long long* keys, unsigned* done,
+                      cudaStream_t s) {
+  const T* rows = static_cast<const T*>(table);
+  switch (r) {
+    case WARP_TILE: {
+      const unsigned blocks = static_cast<unsigned>((m + WARP_TILE - 1) / WARP_TILE) * splits;
+      wave_sweep_warp_kernel<T><<<blocks, SWEEP_WARPS * 32, 0, s>>>(
+          p, d, rows, k, idx, m, splits, per_block, best_t, best_c, best_l, keys, done);
+      return static_cast<int>(cudaGetLastError());
+    }
+    case STAGED_TILE: {
+      const unsigned blocks = static_cast<unsigned>((m + STAGED_TILE - 1) / STAGED_TILE) * splits;
+      wave_sweep_staged_kernel<T><<<blocks, SWEEP_THREADS, 0, s>>>(
+          p, d, rows, k, idx, m, splits, per_block, best_t, best_c, best_l, keys, done);
+      return static_cast<int>(cudaGetLastError());
+    }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // idx (m,) int32 rays to sweep, in tiles of r (4 or 32); the
 // clusters cut into splits ranges of per_block (the last may be short,
-// none empty); the state as in wave_mt. keys (at least m) and done (at
-// least ceil(m / r)) are the sweep's own: every key ~0 and every counter
-// 0 before the first call, and every call leaves them so. One launch.
-// k * 128 must fit an int32.
-extern "C" int wave_sweep_launch(const float* p, const float* d, const float* table, int k,
-                                 const int* idx, int m, int r, int splits, int per_block,
+// none empty); the table and the state as in wave_mt. keys (at least m)
+// and done (at least ceil(m / r)) are the sweep's own: every key ~0 and
+// every counter 0 before the first call, and every call leaves them so.
+// One launch. k * 128 must fit an int32.
+extern "C" int wave_sweep_launch(const float* p, const float* d, const void* table, int bf16,
+                                 int k, const int* idx, int m, int r, int splits, int per_block,
                                  float* best_t, int* best_c, int* best_l,
                                  unsigned long long* keys, unsigned* done, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -728,19 +826,8 @@ extern "C" int wave_sweep_launch(const float* p, const float* d, const float* ta
       static_cast<long long>(splits) * per_block < k) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (r) {
-    case WARP_TILE: {
-      const unsigned blocks = static_cast<unsigned>((m + WARP_TILE - 1) / WARP_TILE) * splits;
-      wave_sweep_warp_kernel<<<blocks, SWEEP_WARPS * 32, 0, s>>>(
-          p, d, table, k, idx, m, splits, per_block, best_t, best_c, best_l, keys, done);
-      return static_cast<int>(cudaGetLastError());
-    }
-    case STAGED_TILE: {
-      const unsigned blocks = static_cast<unsigned>((m + STAGED_TILE - 1) / STAGED_TILE) * splits;
-      wave_sweep_staged_kernel<<<blocks, SWEEP_THREADS, 0, s>>>(
-          p, d, table, k, idx, m, splits, per_block, best_t, best_c, best_l, keys, done);
-      return static_cast<int>(cudaGetLastError());
-    }
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bf16 ? launch_wave_sweep<__nv_bfloat16>(p, d, table, k, idx, m, r, splits, per_block,
+                                                 best_t, best_c, best_l, keys, done, s)
+              : launch_wave_sweep<float>(p, d, table, k, idx, m, r, splits, per_block, best_t,
+                                         best_c, best_l, keys, done, s);
 }

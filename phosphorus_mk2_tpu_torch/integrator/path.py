@@ -109,12 +109,15 @@ def make_tracer(scene, use_bvh: bool = True, use_pallas: bool = False,
     and "per_ray" run eager PyTorch on the scene's device, and
     ``tracer_tune`` and ``plain`` do not apply to them.
 
-    tracer_tune: cluster-tracer tunables (see cluster_traverse._trace);
+    tracer_tune: cluster-tracer tunables (see cluster_traverse._trace),
+    among them slab_bf16, front_levels and
+    wave_dedup / dedup_d keep every winner; rows_bf16 traces bf16 rows
+    and changes images (the any-hit trace then widens its margins);
     ignored by the brute tracer. A "shadow" sub-dict overrides keys for
     the any-hit trace only: shadow rays end on the first hit within a
     short tmax and need no front-to-back completeness, so for example a
-    shallower front_k can serve them (the exact fallback covers overflow
-    either way; only the schedule changes).
+    shallower front_k, or rows_bf16 for shadows alone, can serve them
+    (the exact fallback covers overflow either way).
 
     plain=True takes the kernels' plain versions on any device (for the
     cluster tracer, the same as tracer_tune={"plain": True}), so that a

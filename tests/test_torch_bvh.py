@@ -2,7 +2,10 @@
 
 Everything here is host-side numpy on both sides, so every array must be
 equal, not close, NaN positions included (empty slots keep NaN bounds,
-which the slab tests rely on).
+which the slab tests rely on). The bf16 tables (the outward-rounded
+bounds and the bf16 cluster rows) are compared bit for bit through their
+16-bit integer views: a JAX bf16 array reaches numpy as ml_dtypes'
+bfloat16, which torch cannot take.
 
 The native (C++) and the numpy builder do NOT build the same tree (they
 break SAH ties differently), in either package; what is held is that the
@@ -15,9 +18,12 @@ import logging
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from phosphorus_mk2_tpu import scenes as jscenes
 from phosphorus_mk2_tpu.accel import bvh_builder as jbb
+from phosphorus_mk2_tpu.accel import cluster_traverse as jct
 from phosphorus_mk2_tpu.accel import native_bvh as jnative
 from phosphorus_mk2_tpu.core.scene import SceneData as JSceneData
 from phosphorus_mk2_tpu_torch import scenes as tscenes
@@ -34,12 +40,9 @@ SCENES = {
     "multi_bsdf_scene": lambda mod: mod.multi_bsdf_scene(8, 8),
     "terrain48": lambda mod: mod.terrain_scene(grid=48, width=8, height=8),
 }
-# tables the port leaves out: they serve slab_bf16 and front_levels=3
-LEFT_OUT = ("_bf16", "ssc_")
-
-
-def _kept(name):
-    return not name.endswith(LEFT_OUT[0]) and not name.startswith(LEFT_OUT[1])
+# tables the port adds to JAX's attach_bvh: the rows a wave gathers (JAX
+# stacks them from cluster_a/e0/e1 in every trace)
+ROWS = {"cluster_rows", "cluster_rows_bf16"}
 
 
 @pytest.fixture(scope="module", params=sorted(SCENES))
@@ -51,12 +54,24 @@ def pair(request):
     return jd, td, tree
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; a bf16 one as its 16-bit integer view."""
+    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _ref_numpy(v) -> np.ndarray:
+    """A JAX array as numpy; a bf16 one as its 16-bit integer view."""
+    v = np.asarray(v)
+    return v.view(np.int16) if v.dtype.name == "bfloat16" else v
+
+
 def _assert_tables_equal(got: dict, ref: dict):
-    ref = {k: np.asarray(v) for k, v in ref.items() if _kept(k)}
-    extra = set(got) - set(ref) - {"cluster_rows"}
+    ref = {k: _ref_numpy(v) for k, v in ref.items()}
+    extra = set(got) - set(ref) - ROWS
     assert not extra and set(ref) <= set(got), (sorted(got), sorted(ref))
+    assert {k for k in ref if k.endswith("_bf16")} == {k + "_bf16" for k in tbb.BOUNDS_TABLES}
     for name, r in ref.items():
-        g = got[name].numpy()
+        g = _numpy(got[name])
         assert g.dtype == r.dtype and g.shape == r.shape, (name, g.dtype, r.dtype, g.shape, r.shape)
         np.testing.assert_array_equal(g, r, err_msg=name)  # NaN == NaN here
 
@@ -86,9 +101,19 @@ def test_build_bvh_matches_jax(pair):
 @pytest.mark.parametrize("mode", ["treelet", "treelet_nested", "flat"])
 def test_attach_bvh_tables_match_jax(pair, mode):
     jd, td, tree = pair
-    ref = jbb.attach_bvh(jd, tree, cluster_mode=mode).bvh
+    jref = jbb.attach_bvh(jd, tree, cluster_mode=mode)
+    ref = jref.bvh
     got = tbb.attach_bvh(td, tree, cluster_mode=mode).bvh
     _assert_tables_equal(got, ref)
+    # the bf16 rows: JAX casts its stacked rows in every trace (round to
+    # nearest even); the port casts once, at attach time
+    assert got["cluster_rows_bf16"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_numpy(got["cluster_rows_bf16"]),
+                                  _ref_numpy(jct._cluster_rows(jref, bf16=True)))
+    # the padded levels stay NaN in bf16 too: a NaN box never hits
+    for name in ("sc_member_bmin", "ssc_member_bmax"):
+        assert np.array_equal(torch.isnan(got[name + "_bf16"].float()).numpy(),
+                              np.isnan(got[name].numpy())), name
     # empty slots: the supercluster padding is NaN, and NaN stays NaN
     k = got["cluster_bmin"].shape[0]
     if k % tbb.SUPER_CLUSTERS:
@@ -174,9 +199,47 @@ def test_scene_data_from_numpy_carries_the_bvh(pair):
     }
     arrays["bvh"] = {k: np.asarray(v) for k, v in jb.bvh.items()}
     static = {k: getattr(jb, k) for k in JSceneData.STATIC_FIELDS}
+    assert any(v.dtype.name == "bfloat16" for v in arrays["bvh"].values())
     carried = scene_data_from_numpy(arrays, static, device="cpu")
-    assert set(carried.bvh) == {k for k in jb.bvh if _kept(k)} | {"cluster_rows"}
+    assert set(carried.bvh) == set(jb.bvh) | ROWS
     own = tbb.attach_bvh(td, tree).bvh
     for k, v in carried.bvh.items():
-        np.testing.assert_array_equal(v.numpy(), own[k].numpy(), err_msg=k)
+        assert v.dtype == own[k].dtype, k
+        np.testing.assert_array_equal(_numpy(v), _numpy(own[k]), err_msg=k)
     assert set(carried.to("cpu").bvh) == set(carried.bvh)
+    # without the rows in the arrays, the carried rows are made from
+    # cluster_a/e0/e1, in both types
+    assert "cluster_rows" not in arrays["bvh"]
+    assert torch.equal(carried.bvh["cluster_rows_bf16"].view(torch.int16),
+                       own["cluster_rows_bf16"].view(torch.int16))
+
+
+_EDGES = [0.0, -0.0, np.nan, 3.38e38, -3.38e38, 3.3799999e38, -3.3799999e38, 3.39e38,
+          -3.39e38, np.inf, -np.inf, 1e-45, -1e-45, 1.0, -1.0]
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(st.lists(st.floats(width=32, allow_nan=True, allow_infinity=True), min_size=1,
+                max_size=64),
+       st.booleans())
+def test_bf16_outward_matches_jax(values, up):
+    """The outward bf16 rounding of the bounds tables against the JAX
+    package's, bit for bit, on random float32 values and the edges (+-0,
+    NaN, the clip at +-3.38e38 and beyond, denormals): every output is
+    representable in bf16 (its low 16 bits are zero), lies on the outer
+    side of the clipped input, and NaN stays NaN."""
+    x = np.array(values + _EDGES, np.float32)
+    got = tbb._bf16_outward(x, up=up)
+    ref = jbb._bf16_outward(x, up=up)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    assert not (got.view(np.uint32) & 0xFFFF).any()
+    nan = np.isnan(x)
+    assert np.array_equal(np.isnan(got), nan)
+    clipped = np.clip(x[~nan], -3.38e38, 3.38e38)
+    assert ((got[~nan] >= clipped) if up else (got[~nan] <= clipped)).all()
+    assert np.isfinite(got[~nan]).all()
+    # as a torch bf16 tensor: the same values, exactly
+    t = tbb.bf16_from_bits(got, "cpu")
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy().view(np.uint32), got.view(np.uint32))

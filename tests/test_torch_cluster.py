@@ -248,20 +248,35 @@ def test_intersect_and_occluded_match_jax_and_brute(scene_pair, name):
 
 
 def test_tmax_none_and_the_unported_tunables(scene_pair):
+    """tmax None is T_MAX; each of the four tunables the port once left
+    unported (its NotImplementedError is gone) runs: front_levels 0, 2
+    and 3, wave_dedup by both routes, slab_bf16, rows_bf16; the exact
+    ones keep the untuned winners; an unknown tunable is a TypeError and
+    an unknown wave_dedup a ValueError; no rays, no work."""
     _, td = scene_pair
-    p, d, _ = _t(*_rays(10, n=64))
+    p, d, tmax = _t(*_rays(10, n=64))
     a = tct.intersect_clusters(td, p, d)
     b = tct.intersect_clusters(td, p, d, torch.full((64,), T_MAX))
     assert torch.equal(a["tri"], b["tri"]) and torch.equal(a["t"], b["t"])
     assert (a["t"][~a["hit"]] == T_MAX).all()
     tct.intersect_clusters(td, p, d, front_levels=2, wave_dedup="off", slab_bf16=False)
-    for tune in ({"slab_bf16": True}, {"rows_bf16": True}, {"wave_dedup": "gather"},
-                 {"front_levels": 3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tct.intersect_clusters(td, p, d, **tune)
+    occ = tct.occluded_clusters(td, p, d, tmax)
+    for tune in ({"slab_bf16": True}, {"dense_k": 1, "front_levels": 0},
+                 {"dense_k": 1, "front_levels": 3}, {"wave_dedup": "gather"},
+                 {"wave_dedup": "onehot", "dedup_d": 4}, {"rows_bf16": True}):
+        got = tct.intersect_clusters(td, p, d, **tune)
+        got_occ = tct.occluded_clusters(td, p, d, tmax, **tune)
+        assert got["hit"].any() and got_occ.dtype == torch.bool
+        if "rows_bf16" not in tune:
+            assert torch.equal(got["tri"], a["tri"]), tune
+            assert torch.equal(got_occ, occ), tune
     with pytest.raises(TypeError):
         tct.intersect_clusters(td, p, d, wave_pallas=True)
-    empty = tct.intersect_clusters(td, p[:0], d[:0])
+    with pytest.raises(ValueError, match="wave_dedup"):
+        tct.intersect_clusters(td, p, d, wave_dedup="sort")
+    with pytest.raises(ValueError, match="wave_dedup"):
+        tct.occluded_clusters(td, p, d, tmax, wave_dedup=True)
+    empty = tct.intersect_clusters(td, p[:0], d[:0], rows_bf16=True, wave_dedup="gather")
     assert empty["tri"].shape == (0,)
 
 

@@ -358,7 +358,8 @@ def test_a_cuda_tensor_never_gives_way_to_the_plain_version(scene_pair):
         wave.wave_mt(p, d, table, *_t(col_t, col_c), False, *_t(*best))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         wave.wave_sweep(p, d, table, idx, *_t(*best))
-    assert wave.LAUNCHES == {"row_gather": 0, "wave_mt": 0, "wave_sweep": 0}
+    assert set(wave.LAUNCHES) >= {"row_gather", "wave_mt", "wave_sweep"}
+    assert not any(wave.LAUNCHES.values())
 
 
 # ---------------------------------------------------------------------------
