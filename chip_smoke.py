@@ -12,6 +12,9 @@
     python3 chip_smoke.py --only-tunables
                                      # phases 1-3, then phase 12 alone (no
                                      # result line)
+    python3 chip_smoke.py --only-options
+                                     # phases 1-3, then phase 13 alone (no
+                                     # result line)
     python3 chip_smoke.py --upto 5 --package DIR
                                      # phases 1-5 of the port in DIR (another
                                      # checkout): its main path timed
@@ -243,7 +246,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      of the pixels, rows_bf16 with the kernels equal to rows_bf16 with
      plain=True at rtol 1e-5, rays/s of each and the rows_bf16 film's
      mean against the exact film's. The timed traces of (b) and the
-     kernel films of (c) are counted, and every new instance must launch.
+     kernel films of (c) are counted, and every new instance must launch;
+ 13. the integrator's options (integrator/path.py pipeline_shadow,
+     spp_batch and remat, through render_pass, Renderer and
+     render_pass_pixels), with the card's name and power limit: (a)
+     pipeline_shadow on cornell_box 256x256 (brute) and the BMW asset at
+     bench bmw_fwd's shape (512x512), 4 spp, depth 4, one render_pass,
+     pipelined and not in turns: the pipelined film with the kernels
+     equal to plain=True's (rtol 1e-5), and to the non-pipelined film
+     within rtol 1e-4, atol 1e-5 (every cornell_box pixel, >= 99.9% of
+     the BMW's, the others counted); per pass the kernel launches (a
+     pipelined brute pass: one mt_anyhit launch a sample), the cluster
+     tracer's traces, waves and host syncs, rays/s (medians of 3); the
+     cornell_box gradient (emission, lobe_weight) pipelined against not
+     within 1e-4 of each field's max |g|; (b) spp_batch 1, 2 and 4
+     through Renderer on cornell_box 256x256 16 spp depth 4 (brute) and
+     the BMW 512x512 4 spp depth 4 (its 1 << 17-pixel chunks): films
+     equal to spp_batch 1's within rtol 1e-4, atol 1e-5, launches a pass,
+     peak memory, rays/s in turns (medians of 3); (c) remat on the
+     gradient steps of bench cornell_fwd_bwd's shape and bmw_fwd_bwd's
+     (the BMW's first 1 << 16 pixels, 2 spp, depth 3), with and without:
+     the gradients within 1e-4 of the scale (max |diff| and bit-equality
+     printed), peak memory, seconds a step, launches with the recompute.
+     The timed renders and steps are counted.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -3725,7 +3750,266 @@ def tunables_phase(ct, mt, front, wave, bench, scenes, terrain_data, tp, td, dev
 
 
 
-def run(profile: bool, upto: int, only_tunables: bool = False) -> int:
+# ---------------------------------------------------------------------------
+# phase 13: the integrator's options (pipeline_shadow, spp_batch, remat)
+# ---------------------------------------------------------------------------
+
+OPTION_TURNS = 3         # timed turns of each setting of (a) and (b), in one run
+REMAT_TURNS = 2          # of each setting of (c): a gradient step takes seconds
+OPTION_KERNELS = ("mt_closest", "mt_anyhit", "front_full", "wave_mt")  # on phase 13's path
+
+
+def in_turns(settings, fn, turns):
+    """{setting: [fn(setting), ...]}, the settings run in turns (a b c,
+    c b a, a b c, ...), so that a drift of the host's speed meets each."""
+    out = {s: [] for s in settings}
+    for t in range(turns):
+        for s in (settings if t % 2 == 0 else settings[::-1]):
+            out[s].append(fn(s))
+    return out
+
+
+def measured(count, ct, fn):
+    """fn() synchronised, with its seconds, its peak memory after a reset,
+    the memory allocated before it, its kernel launches and the cluster
+    tracer's STATS, each counted from 0 just before it."""
+    for k in ct.STATS:
+        ct.STATS[k] = 0
+    before = torch.cuda.memory_allocated()
+    (out, secs, peak), launches = count(lambda: timed(fn))
+    return {"out": out, "s": secs, "peak_bytes": peak, "transient_bytes": peak - before,
+            "launches": launches, "traced": dict(ct.STATS)}
+
+
+def summary(runs, rays):
+    """The first turn's counts and peaks, the median seconds over the
+    turns, and rays/s at that median."""
+    first = runs[0]
+    secs = float(np.median([r["s"] for r in runs]))
+    return {"s": secs, "s_turns": [r["s"] for r in runs], "rays_per_s": rays / secs,
+            "peak_bytes": first["peak_bytes"], "transient_bytes": first["transient_bytes"],
+            "launches": {k: v for k, v in first["launches"].items() if v},
+            "traced": first["traced"]}
+
+
+def pipelined_films(path, ct, cases, dev, count):
+    """13a: each case pipelined and not through render_pass (4 spp, depth
+    4), in turns; the pipelined film with the kernels against the same
+    with plain=True (rtol 1e-5, as phase 6), and against the non-pipelined
+    film within tests/test_integrator.py's bound (rtol 1e-4, atol 1e-5):
+    every pixel of cornell_box, >= 99.9% of the BMW's (the pixels beyond
+    counted). The timed renders are counted; warm-ups and the plain film
+    not."""
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+
+    spp, depth = 4, 4
+    out = {}
+    for label, scene, data, use_bvh, min_share in cases:
+        w, h = scene.camera.width, scene.camera.height
+        cam = camera_to_params(scene.camera, dev)
+
+        def film(pipe, plain=False):
+            tracer = path.make_tracer(data, use_bvh=use_bvh, plain=plain)
+            with torch.no_grad():
+                return path.render_pass(data, cam, 0, 0, spp, width=w, height=h,
+                                        max_depth=depth, tracer=tracer,
+                                        pipeline_shadow=pipe)["color"]
+
+        film(True), film(False)  # warm-ups
+        runs = in_turns((True, False), lambda pipe: measured(count, ct, lambda: film(pipe)),
+                        OPTION_TURNS)
+        films = {pipe: runs[pipe][0]["out"] for pipe in runs}
+        for pipe, rs in runs.items():
+            check(all(torch.equal(r["out"], films[pipe]) for r in rs),
+                  f"{label} pipeline_shadow={pipe}: the turns' films differ")
+        got, ref = films[True].cpu().numpy(), films[False].cpu().numpy()
+        check(np.isfinite(got).all() and got.mean() > 0, f"{label}: pipelined film not finite or black")
+        plain = film(True, plain=True).cpu().numpy()
+        plain_diff = float(np.abs(got - plain).max())
+        within = np.isclose(got, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
+        rays = w * h * spp * depth * 2
+        row = {pipe: summary(runs[pipe], rays) for pipe in (True, False)}
+        res = {"pipelined": row[True], "not_pipelined": row[False],
+               "kernels_vs_plain_max_abs_diff": plain_diff,
+               "vs_not_pipelined_max_abs_diff": float(np.abs(got - ref).max()),
+               "pixels_within": float(within.mean()), "pixels_beyond": int((~within).sum())}
+        out[label] = res
+        for pipe, name in ((True, "pipelined"), (False, "not pipelined")):
+            r = row[pipe]
+            print(f"{label} {w}x{h} {spp} spp depth {depth} {name}: {r['s']:.6f} s a pass "
+                  f"({', '.join(f'{s:.6f}' for s in r['s_turns'])}), "
+                  f"{r['rays_per_s'] / 1e6:.4f} Mrays/s (median of {OPTION_TURNS} turns); "
+                  f"launches a pass {r['launches']}; tracer {r['traced']}", flush=True)
+        print(f"{label} pipelined: kernels vs plain=True max |diff| {plain_diff:.3g}; vs not "
+              f"pipelined max |diff| {res['vs_not_pipelined_max_abs_diff']:.3g}, pixels within "
+              f"rtol 1e-4 atol 1e-5 {res['pixels_within']:.6f} ({res['pixels_beyond']} beyond)",
+              flush=True)
+        check(np.allclose(got, plain, rtol=1e-5, atol=0.0),
+              f"{label}: the pipelined film with the kernels differs from plain=True's by "
+              f"{plain_diff}")
+        check(res["pixels_within"] >= min_share,
+              f"{label}: only {res['pixels_within']} of the pipelined pixels match the "
+              "non-pipelined film")
+        if not use_bvh:  # the brute tracer: one any-hit launch a sample, the trailing resolve
+            pl, npl = row[True]["launches"], row[False]["launches"]
+            check(pl.get("mt_anyhit") == spp and pl.get("mt_closest") == spp * depth
+                  and npl.get("mt_anyhit") == spp * depth,
+                  f"{label}: pipelined launches {pl}, not pipelined {npl}")
+    return out
+
+
+def pipelined_gradient(path, scenes, dev):
+    """13a: d color.sum() / d (emission, lobe_weight) of cornell_box
+    256x256, 4 spp, depth 4, pipelined against not, within 1e-4 of each
+    field's max |g| (phase 8's bound on the card)."""
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+
+    scene = scenes.cornell_box(256, 256)
+    data = scene.build(device=dev)
+    cam = camera_to_params(scene.camera, dev)
+    tracer = path.make_tracer(data, use_bvh=False)
+    pair = ("emission", "lobe_weight")
+    _, ref = grad_render(path, data, cam, 256, 256, 4, 4, tracer, pair)
+    _, got = grad_render(path, data, cam, 256, 256, 4, 4, tracer, pair, pipeline_shadow=True)
+    errs = check_grads("cornell_box 256x256 pipelined gradient", got, ref, 1e-4)
+    print("cornell_box 256x256 4 spp depth 4 gradient (emission, lobe_weight), pipelined vs "
+          "not: " + ", ".join(f"{f} {e:.3g} of the scale" for f, e in errs.items()), flush=True)
+    return errs
+
+
+def spp_batch_renders(pt, ct, cases, dev, count):
+    """13b: each case through Renderer at spp_batch 1, 2 and 4, in turns:
+    the film against spp_batch=1's (rtol 1e-4, atol 1e-5), kernel launches
+    a pass, peak memory and rays/s. The timed renders are counted; the
+    warm-ups not."""
+    out = {}
+    sbs = (1, 2, 4)
+    for label, scene, kw in cases:
+        opts = {sb: pt.Options(spp_batch=sb, **kw) for sb in sbs}
+        rs = {sb: pt.Renderer(scene, opts[sb], device=dev) for sb in sbs}
+        for sb, r in rs.items():
+            check(r.fn.render_kw["spp_batch"] == sb, f"{label}: spp_batch {sb} did not reach the pass")
+            r.render()  # warm-up
+        runs = in_turns(sbs, lambda sb: measured(count, ct, lambda: rs[sb].render()), OPTION_TURNS)
+        w, h = scene.camera.width, scene.camera.height
+        spp, depth = kw["samples_per_pixel"], kw["path_depth"]
+        passes = -(-spp // kw.get("samples_per_pass", 4))
+        rays = w * h * spp * depth * 2
+        base = runs[1][0]["out"]["color"]
+        res = {}
+        for sb in sbs:
+            film = runs[sb][0]["out"]["color"]
+            check(np.isfinite(film).all() and film.mean() > 0, f"{label} spp_batch {sb}: film")
+            row = summary(runs[sb], rays)
+            row["launches_a_pass"] = {k: v / passes for k, v in row["launches"].items()}
+            row["vs_sb1_max_abs_diff"] = float(np.abs(film - base).max())
+            res[sb] = row
+            print(f"{label} spp_batch {sb} (rays a trace: {min(w * h, rs[sb].max_wavefront) * sb}): "
+                  f"{row['s']:.6f} s ({', '.join(f'{s:.6f}' for s in row['s_turns'])}), "
+                  f"{row['rays_per_s'] / 1e6:.4f} Mrays/s (median of {OPTION_TURNS} turns); peak "
+                  f"{row['peak_bytes']} bytes ({row['transient_bytes']} above the scenes); "
+                  f"launches a pass {row['launches_a_pass']}; tracer {row['traced']}; vs "
+                  f"spp_batch 1 max |diff| {row['vs_sb1_max_abs_diff']:.3g}", flush=True)
+            check(np.allclose(film, base, rtol=1e-4, atol=1e-5),
+                  f"{label}: spp_batch {sb}'s film differs from spp_batch 1's by "
+                  f"{row['vs_sb1_max_abs_diff']}")
+        out[label] = res
+        del rs
+    return out
+
+
+def remat_steps(path, ct, cases, dev, count):
+    """13c: each gradient step with remat and without, in turns: the
+    gradients against each other (max |diff|; bit-equal expected on one
+    card, within 1e-4 of the scale checked), peak memory after a reset,
+    seconds a step, and kernel launches (the recompute's included). The
+    timed steps are counted; the warm-ups not."""
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+
+    out = {}
+    for label, scene, data, use_bvh, n, spp, depth, kw in cases:
+        w = scene.camera.width
+        cam = camera_to_params(scene.camera, dev)
+        tracer = path.make_tracer(data, use_bvh=use_bvh)
+        ids = torch.arange(n, dtype=torch.int64, device=dev)
+        px, py = ids % w, ids // w
+
+        def step(remat, spp=spp):
+            import dataclasses
+
+            leaves = {f: getattr(data, f).detach().clone().requires_grad_() for f in GRAD_FIELDS}
+            sums = path.render_pass_pixels(dataclasses.replace(data, **leaves), cam, 0, 0, spp,
+                                           px, py, max_depth=depth, tracer=tracer, remat=remat,
+                                           **kw)
+            sums["color"].sum().backward()
+            return {f: leaves[f].grad for f in GRAD_FIELDS}
+
+        step(False, 1), step(True, 1)  # warm-ups
+        runs = in_turns((False, True), lambda remat: measured(count, ct, lambda: step(remat)),
+                        REMAT_TURNS)
+        rays = n * spp * depth * 2
+        g0, g1 = runs[False][0]["out"], runs[True][0]["out"]
+        for f in GRAD_FIELDS:
+            check(bool(torch.isfinite(g1[f]).all()), f"{label} remat: the {f} gradient")
+        errs = check_grads(f"{label} remat vs not", g1, g0, 1e-4)
+        diffs = {f: float((g1[f] - g0[f]).abs().max()) for f in GRAD_FIELDS}
+        equal = {f: bool(torch.equal(g1[f], g0[f])) for f in GRAD_FIELDS}
+        res = {"remat": summary(runs[True], rays), "no_remat": summary(runs[False], rays),
+               "max_abs_diff": diffs, "bit_equal": equal, "rel_err": errs}
+        out[label] = res
+        for key, name in (("no_remat", "without remat"), ("remat", "with remat")):
+            r = res[key]
+            print(f"{label} gradient step {name}: {r['s']:.6f} s "
+                  f"({', '.join(f'{s:.6f}' for s in r['s_turns'])}), "
+                  f"{r['rays_per_s'] / 1e6:.4f} Mrays/s (median of {REMAT_TURNS}); peak "
+                  f"{r['peak_bytes']} bytes ({r['transient_bytes']} above the scene); launches "
+                  f"{r['launches']}; tracer {r['traced']}", flush=True)
+        print(f"{label} gradients with remat vs without: max |diff| {diffs}, bit-equal {equal}",
+              flush=True)
+    return out
+
+
+def options_phase(pt, ct, mt, front, wave, bench, scenes, dev, smi):
+    """Phase 13. Its main path is the timed renders and steps of 13a-c,
+    each counted from 0 just before and read just after; the warm-ups,
+    the plain film and the pipelined gradient check are not counted.
+    Returns the launches."""
+    from phosphorus_mk2_tpu_torch.integrator import path
+
+    t0 = time.perf_counter()
+    bmw_scene, bmw_data = bench.load_bmw(dev)
+    check(bmw_data.num_tris == BMW_TRIS, f"BMW: {bmw_data.num_tris} triangles, not {BMW_TRIS}")
+    box = scenes.cornell_box(256, 256)
+    box_data = box.build(device=dev)
+    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
+    count = launch_counter((mt, front, wave), totals)
+    res = {"pipeline_shadow": pipelined_films(
+        path, ct, [("cornell_box", box, box_data, False, 1.0),
+                   ("BMW", bmw_scene, bmw_data, True, 0.999)], dev, count)}
+    res["pipeline_shadow"]["gradient_rel_err"] = pipelined_gradient(path, scenes, dev)
+    res["spp_batch"] = spp_batch_renders(pt, ct, [
+        ("cornell_box 256x256 16 spp depth 4 brute", box,
+         dict(use_bvh=False, samples_per_pixel=16, path_depth=4)),
+        ("BMW 512x512 4 spp depth 4", bmw_scene,
+         dict(use_bvh=True, samples_per_pixel=4, path_depth=4))], dev, count)
+    res["remat"] = remat_steps(path, ct, [
+        # bench cornell_fwd_bwd's shape: the whole frame, 16 spp, depth 4, brute
+        ("cornell_box 256x256 16 spp depth 4", box, box_data, False, 256 * 256, 16, 4, {}),
+        # bench bmw_fwd_bwd's: the first 1 << 16 pixels, 2 spp, depth 3
+        ("BMW 1 << 16 pixels 2 spp depth 3", bmw_scene, bmw_data, True, 1 << 16, 2, 3,
+         {"sorted_dispatch": False})], dev, count)
+    for k in OPTION_KERNELS:
+        check(totals[k] > 0, f"phase 13: {k} was not launched")
+    res["launches_counted"] = totals
+    res["device"] = smi
+    res["s"] = time.perf_counter() - t0
+    print(json.dumps({"options": res}, default=str), flush=True)
+    print(f"phase 13: {res['s']:.1f} s; {smi}", flush=True)
+    return totals
+
+
+
+def run(profile: bool, upto: int, only_tunables: bool = False, only_options: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -3777,6 +4061,12 @@ def run(profile: bool, upto: int, only_tunables: bool = False) -> int:
         from phosphorus_mk2_tpu_torch import bench
 
         tunables_phase(ct, mt, front, wave, bench, scenes, terrain_data, tp, td, dev, smi)
+        return 0
+    if only_options:
+        phase("13 the integrator's options (alone)")
+        from phosphorus_mk2_tpu_torch import bench
+
+        options_phase(pt, ct, mt, front, wave, bench, scenes, dev, smi)
         return 0
     if upto < 4:
         return 0
@@ -3836,10 +4126,15 @@ def run(profile: bool, upto: int, only_tunables: bool = False) -> int:
 
     tune_launches, tune_errs = tunables_phase(ct, mt, front, wave, bench, scenes, terrain_data,
                                               tp, td, dev, smi)
+    if upto < 13:
+        return 0
+
+    phase("13 the integrator's options")
+    option_launches = options_phase(pt, ct, mt, front, wave, bench, scenes, dev, smi)
     for row in rows:  # the kernels line counts the main path of every phase
         row["launches"] += (grad_launches[row["name"]] + io_launches[row["name"]]
                             + entry_launches[row["name"]] + oracle_launches[row["name"]]
-                            + tune_launches[row["name"]])
+                            + tune_launches[row["name"]] + option_launches[row["name"]])
         if row["max_abs_err"] is None:  # a new instance: its parity is phase 12's
             row["max_abs_err"] = tune_errs[row["name"]]
     names = [row["name"] for row in rows]
@@ -3863,11 +4158,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one pass of each main-path render with torch.profiler")
-    ap.add_argument("--upto", type=int, default=12, metavar="PHASE",
+    ap.add_argument("--upto", type=int, default=13, metavar="PHASE",
                     help="stop after this phase (2 or 3: build and parity only, for a "
                          "first look at a new kernel); prints no result line")
     ap.add_argument("--only-tunables", action="store_true",
                     help="phases 1-3, then phase 12 alone (no result line)")
+    ap.add_argument("--only-options", action="store_true",
+                    help="phases 1-3, then phase 13 alone (no result line)")
     ap.add_argument("--sweep-timing", action="store_true",
                     help="only time wave_sweep at phase 7's shapes and print one JSON line "
                          "(no result line)")
@@ -3885,11 +4182,11 @@ def main() -> int:
             return 2
         return sweep_timing_only([int(x) for x in args.m.split(",") if x])
     try:
-        rc = run(args.profile, args.upto, args.only_tunables)
+        rc = run(args.profile, args.upto, args.only_tunables, args.only_options)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if rc == 0 and (args.upto < 12 or args.only_tunables):
+    if rc == 0 and (args.upto < 13 or args.only_tunables or args.only_options):
         print(f"chip_smoke: stopped after phase {args.upto}; no result", file=sys.stderr)
     return rc
 

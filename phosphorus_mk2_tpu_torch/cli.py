@@ -14,9 +14,12 @@ plus the JAX package's additions (--spp-per-pass, --no-bvh, --pallas,
 --seed, --checkpoint-dir, --width/--height overrides, --png preview,
 --optimize). The render runs on the cards; ``-c`` is the only way to the
 CPU, and without it a host with no card raises before anything is read
-or written. ``--pallas``, ``--spp-batch``, ``--depth-unroll``,
-``--sample-unroll`` and ``--remat`` reach ``Options`` and are ignored
-there, as everywhere in the port.
+or written. Every flag reaches ``Options``: ``--spp-batch`` folds
+samples into one wavefront and ``--remat`` checkpoints each bounce under
+autograd (a render has none, so it changes nothing there), as in the JAX
+package; ``--pallas`` (the CUDA brute tracer always runs its hand
+kernels), ``--depth-unroll`` and ``--sample-unroll`` (scan unrolls: the
+port's loops are eager) are ignored.
 
 Pipeline mirrors the reference main() (src/core.cpp:125-187): import
 scene -> build device scene (+BVH) -> devices -> render passes -> write

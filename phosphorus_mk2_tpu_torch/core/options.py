@@ -4,9 +4,11 @@ single_threaded, host_only, progressive, render_normals, verbose).
 
 A copy of ``phosphorus_mk2_tpu/core/options.py``. The port honours
 samples_per_pixel, path_depth, samples_per_pass, use_bvh, mis, seed,
-checkpoint_dir, checkpoint_every, max_wavefront, aniso_taps and
-tracer_tune; on a CUDA scene the brute tracer always runs the hand
-kernels of accel/mt.py, whatever use_pallas says."""
+checkpoint_dir, checkpoint_every, max_wavefront, spp_batch, remat,
+aniso_taps and tracer_tune. It ignores use_pallas (a CUDA scene's brute
+tracer always runs the hand kernels of accel/mt.py) and depth_unroll and
+sample_unroll (the JAX scans' unrolls: the port's loops are eager
+Python, with no scan to unroll)."""
 from __future__ import annotations
 
 import dataclasses
@@ -48,13 +50,18 @@ class Options:
                                    # at 1<<17 and 157,032 at 1<<20 (PERF.md
                                    # §5, H100 80GB HBM3 at 700 W; ROADMAP
                                    # Queue 2)
-    # the JAX package's scan/launch tuning: accepted and ignored here, as
-    # the port's integrator is eager PyTorch with no scan to unroll, fold
-    # or checkpoint (ROADMAP.md Queue 3)
+    # the JAX package's scan unrolls: accepted and ignored here, as the
+    # port's integrator is eager PyTorch with no scan to unroll
     depth_unroll: int = 0          # bounce-scan unroll; 0 = auto
     sample_unroll: int = 0         # sample-scan unroll; 0 = auto
-    spp_batch: int = 1             # samples folded into one wavefront
-    remat: bool = False            # checkpoint the bounce body (grad)
+    spp_batch: int = 1             # samples folded into one wavefront:
+                                   # each trace runs spp_batch x the
+                                   # chunk's pixels (max_wavefront counts
+                                   # pixels); 1 where it does not divide
+                                   # a pass's samples
+    remat: bool = False            # torch.utils.checkpoint of each bounce
+                                   # under autograd (memory for
+                                   # recompute); no effect on a forward
     aniso_taps: int = 0            # anisotropic texture taps along the
                                    # footprint's uv major axis (0 =
                                    # isotropic trilinear); the stand-in

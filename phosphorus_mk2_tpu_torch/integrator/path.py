@@ -38,6 +38,7 @@ import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from phosphorus_mk2_tpu_torch.accel import mt
 from phosphorus_mk2_tpu_torch.accel.block_traverse import intersect_blocks, occluded_blocks
@@ -320,15 +321,18 @@ def trace_sample(
     film_strata: int = 1,
     mis: bool = False,
     tables: dict | None = None,
-    aniso_taps: int = 0,
+    remat: bool = False,
     sorted_dispatch: bool = True,
+    pipeline_shadow: bool = False,
+    aniso_taps: int = 0,
     trainable: tuple | None = None,
 ):
     """Trace one sample per pixel for a wavefront. Returns (radiance (N,3),
     first-hit normal (N,3), first-hit alpha (N,)).
 
     seed: the render seed (its low 32 bits key the RNG, as
-    ``jax.random.key(seed)`` does in the JAX package). sample_idx: int.
+    ``jax.random.key(seed)`` does in the JAX package). sample_idx: an int,
+    or an (N,) integer tensor of per-ray sample indices (spp_batch).
     film_strata: stratify the film jitter on a d x d grid cycled by
     sample index. aniso_taps: texture probes along the footprint's major
     axis (0 = isotropic trilinear).
@@ -345,6 +349,22 @@ def trace_sample(
     differentiate with respect to; gradient flow from every other field
     is cut (scope_scene and the column-scoped hit-row gather), and the
     gradients of the listed fields are those of trainable=None.
+
+    pipeline_shadow: bounce b's NEE shadow rays ride in bounce b+1's
+    closest-hit trace (one 2N-ray trace a bounce instead of a closest-hit
+    and an any-hit trace); their contribution lands one bounce later, and
+    one any-hit trace after the loop resolves the last bounce's. The
+    same values up to float summation order. In effect only when the
+    scene has lights. The shadow half goes through ``closest``, so a
+    cluster tracer's ``"shadow"`` tunables and any-hit margins reach only
+    the trailing resolve, as in the JAX package.
+
+    remat: under autograd (grad enabled and some scene tensor or camera
+    ray requiring grad), each bounce runs through
+    ``torch.utils.checkpoint``: only the bounce's carry is kept for the
+    backward, which runs the bounce again, trace included
+    (``jax.checkpoint``'s default policy). Otherwise the bounce runs as it
+    does without it.
     """
     n = pixel_x.shape[0]
     dev = pixel_x.device
@@ -363,10 +383,14 @@ def trace_sample(
     film_u, lens_u = u_cam[:, 0:2], u_cam[:, 2:4]
     if film_strata > 1:
         ds = film_strata
-        cell = int(sample_idx) % (ds * ds)
-        off = torch.tensor(
-            [[float(cell % ds), float(cell // ds)]], dtype=torch.float32, device=dev
-        )
+        if torch.is_tensor(sample_idx):  # per-ray sample indices: a cell each
+            cell = sample_idx.to(device=dev, dtype=torch.int64) % (ds * ds)
+            off = torch.stack([cell % ds, cell // ds], dim=-1).to(torch.float32)
+        else:
+            cell = int(sample_idx) % (ds * ds)
+            off = torch.tensor(
+                [[float(cell % ds), float(cell // ds)]], dtype=torch.float32, device=dev
+            )
         film_u = (off + film_u) / ds
 
     p, d = generate_rays(cam_params, pixel_x, pixel_y, film_u, lens_u)
@@ -375,22 +399,29 @@ def trace_sample(
     spread = cone_spread(scene, cam_params)
 
     nee_enabled = scene.num_lights > 0
-    beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    spec = torch.zeros((n,), dtype=torch.bool, device=dev)
-    first = torch.ones((n,), dtype=torch.bool, device=dev)
-    aov_normal = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    aov_alpha = torch.zeros((n,), dtype=torch.float32, device=dev)
-    # the pdf of the direction that led to this vertex (MIS) and the
-    # camera-to-vertex path length (ray cone), made only where used
-    pdf_prev = torch.zeros((n,), dtype=torch.float32, device=dev) if mis else None
-    plen = None if spread is None else torch.zeros((n,), dtype=torch.float32, device=dev)
+    pipe = pipeline_shadow and nee_enabled
 
-    for b in range(max_depth):
+    def bounce(b: int, s: dict) -> dict:
+        """Bounce b on the carry s; returns the next carry."""
+        p, d, beta, radiance, alive = s["p"], s["d"], s["beta"], s["radiance"], s["alive"]
+        spec, pdf_prev, plen, pend = s["spec"], s["pdf_prev"], s["plen"], s["pend"]
         # the primal trace; dead lanes trace with tmax ~ 0
+        tmax = torch.where(alive, T_MAX, 1e-6)
         with torch.no_grad():
-            hits = closest(p.detach(), d.detach(), torch.where(alive, T_MAX, 1e-6))
+            if pend is None:
+                hits = closest(p.detach(), d.detach(), tmax)
+            else:
+                # this bounce's rays and the previous bounce's shadow rays
+                # in one trace; a shadow ray's "hit" is its occlusion
+                both = closest(torch.cat([p, pend["p"]]).detach(),
+                               torch.cat([d, pend["d"]]).detach(),
+                               torch.cat([tmax, pend["tmax"].detach()]))
+                hits = {k: v[:n] for k, v in both.items()}
+                occ_prev = both["hit"][n:]
+        if pend is not None:
+            radiance = radiance + torch.where(
+                (pend["valid"] & ~occ_prev)[..., None], pend["contrib"], 0.0
+            )
         tri = hits["tri"]
         hit = hits["hit"] & alive
         safe_tri = torch.clamp(tri, min=0).long()
@@ -438,9 +469,10 @@ def trace_sample(
         radiance = radiance + torch.where(miss_mask[..., None], beta * env_e, 0.0)
 
         # first-hit AOVs (only bounce 0 has alive == first)
+        first = s["first"]
         fh = first & alive & hit
-        aov_normal = torch.where(fh[..., None], hn, aov_normal)
-        aov_alpha = torch.where(fh, 1.0, aov_alpha)
+        aov_normal = torch.where(fh[..., None], hn, s["aov_normal"])
+        aov_alpha = torch.where(fh, 1.0, s["aov_alpha"])
         first = first & ~alive
         if spread is not None:
             plen = plen + torch.where(hit, t_hit.detach(), 0.0)
@@ -466,10 +498,13 @@ def trace_sample(
             wi = wi_vec / dist[..., None]
             dist = dist - RAY_EPSILON
 
+            # a NaN distance gives a NaN wi, so such a lane is never valid
+            # and its tmax is 0: a miss for closest and occluded alike
             valid = hit & (dot(hn, wi) > 0.0) & ls["valid"]
-            with torch.no_grad():
-                occ = occluded(p_off.detach(), wi.detach(),
-                               torch.where(valid, dist, 0.0).detach())
+            if not pipe:
+                with torch.no_grad():
+                    occ = occluded(p_off.detach(), wi.detach(),
+                                   torch.where(valid, dist, 0.0).detach())
 
             f = bsdf_f(lobes, hn, wi, wo_view)
             light_e = emission_from_row(scene, ls["e"], ls["etex"], ls["st"])
@@ -483,8 +518,19 @@ def trace_sample(
                 li = light_e * f * (w_nee / maximum(pdf_l, 1e-12))[..., None]
             else:
                 li = (light_e * 4.0) * f / maximum(pdf_l, 1e-12)[..., None]
-            use = valid & ~occ
-            radiance = radiance + torch.where(use[..., None], beta * li, 0.0)
+            if pipe:
+                # deferred: the next bounce's trace (or the trailing
+                # resolve after the loop) tells whether it is occluded
+                pend = {
+                    "p": p_off,
+                    "d": wi,
+                    "tmax": torch.where(valid, dist, 0.0),
+                    "contrib": torch.where(valid[..., None], beta * li, 0.0),
+                    "valid": valid,
+                }
+            else:
+                use = valid & ~occ
+                radiance = radiance + torch.where(use[..., None], beta * li, 0.0)
 
         # 3. Russian roulette + termination (reference terminate_path)
         depth_after = b + 1
@@ -513,34 +559,100 @@ def trace_sample(
             # the mixture pdf of the direction just sampled, which the
             # BSDF-hit weight at the next vertex competes with
             pdf_prev = torch.where(alive_next, bsdf_pdf(lobes, hn, d_next, wo_view), 0.0)
-        alive = alive_next
+        return {"p": p, "d": d, "beta": beta, "radiance": radiance, "alive": alive_next,
+                "spec": spec, "first": first, "aov_normal": aov_normal,
+                "aov_alpha": aov_alpha, "pdf_prev": pdf_prev, "plen": plen, "pend": pend}
 
-    return radiance, aov_normal, aov_alpha
+    f32 = dict(dtype=torch.float32, device=dev)
+    flag = dict(dtype=torch.bool, device=dev)
+    state = {
+        "p": p,
+        "d": d,
+        "beta": torch.ones((n, 3), **f32),
+        "radiance": torch.zeros((n, 3), **f32),
+        "alive": torch.ones((n,), **flag),
+        "spec": torch.zeros((n,), **flag),
+        "first": torch.ones((n,), **flag),
+        "aov_normal": torch.zeros((n, 3), **f32),
+        "aov_alpha": torch.zeros((n,), **f32),
+        # the pdf of the direction that led to this vertex (MIS) and the
+        # camera-to-vertex path length (ray cone), made only where used
+        "pdf_prev": torch.zeros((n,), **f32) if mis else None,
+        "plen": None if spread is None else torch.zeros((n,), **f32),
+        # the shadow rays a pipelined bounce leaves to the next trace
+        "pend": ({"p": torch.zeros((n, 3), **f32), "d": torch.zeros((n, 3), **f32),
+                  "tmax": torch.zeros((n,), **f32), "contrib": torch.zeros((n, 3), **f32),
+                  "valid": torch.zeros((n,), **flag)} if pipe else None),
+    }
+    remat = remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (p, d, *(getattr(scene, f) for f in scene.tensor_fields())))
+    for b in range(max_depth):
+        if remat:
+            # the integrator draws nothing from torch's generators (math/rng
+            # is counter-based): there is no RNG state to restore
+            state = checkpoint(bounce, b, state, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            state = bounce(b, state)
+
+    radiance, pend = state["radiance"], state["pend"]
+    if pend is not None:
+        # the trailing resolve: the last bounce's shadow rays
+        with torch.no_grad():
+            occ = occluded(pend["p"].detach(), pend["d"].detach(), pend["tmax"].detach())
+        radiance = radiance + torch.where(
+            (pend["valid"] & ~occ)[..., None], pend["contrib"], 0.0
+        )
+    return radiance, state["aov_normal"], state["aov_alpha"]
 
 
 def render_pass_pixels(scene, cam_params, seed: int, sample_offset: int,
                        n_samples: int, px, py, *, max_depth: int, tracer,
-                       film_strata: int = 1, mis: bool = False, aniso_taps: int = 0,
-                       sorted_dispatch: bool = True, trainable: tuple | None = None):
+                       film_strata: int = 1, mis: bool = False, spp_batch: int = 1,
+                       depth_unroll: int = 1, sample_unroll: int = 1, remat: bool = False,
+                       sorted_dispatch: bool = True, pipeline_shadow: bool = False,
+                       aniso_taps: int = 0, trainable: tuple | None = None):
     """Accumulate ``n_samples`` samples for a pixel wavefront px, py (N,).
     Returns dict of per-pixel sums (not yet divided by spp),
     differentiable with respect to the scene's fields (see trace_sample
-    for sorted_dispatch and trainable)."""
+    for sorted_dispatch, pipeline_shadow, remat and trainable).
+
+    spp_batch: samples traced in one wavefront. sb > 1 tiles the pixels
+    sb times, so that every trace runs sb * N rays, each lane with its
+    own sample index (sample_offset + s * sb + lane's tile); the same
+    sample values as spp_batch=1, the sums differ only by float
+    reassociation. Falls back to 1 when it does not divide n_samples.
+    depth_unroll, sample_unroll: the JAX scans' unrolls; the loops here
+    are eager Python, so they are ignored."""
+    del depth_unroll, sample_unroll  # scan unrolls: the eager loops have none
     n = px.shape[0]
     dev = px.device
+    sb = max(1, min(spp_batch, n_samples))
+    if n_samples % sb != 0:
+        sb = 1
+    if sb > 1:
+        pxb, pyb = px.repeat(sb), py.repeat(sb)
+        sub = torch.arange(sb, dtype=torch.int64, device=dev).repeat_interleave(n)
+    else:
+        pxb, pyb = px, py
     scene = scope_scene(scene, trainable)  # cut non-trainable gradients
     tables = make_scene_tables(scene)  # once per pass, shared by samples
     tracer = tracer_for(tracer, scene)
     c = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     nrm = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     a = torch.zeros((n,), dtype=torch.float32, device=dev)
-    for s in range(n_samples):
+    for s in range(n_samples // sb):
+        sidx = sample_offset + s * sb + sub if sb > 1 else sample_offset + s
         r, sn, sa = trace_sample(
-            scene, cam_params, px, py, sample_offset + s, seed,
+            scene, cam_params, pxb, pyb, sidx, seed,
             max_depth=max_depth, tracer=tracer, film_strata=film_strata,
-            mis=mis, tables=tables, aniso_taps=aniso_taps,
-            sorted_dispatch=sorted_dispatch, trainable=trainable,
+            mis=mis, tables=tables, remat=remat, sorted_dispatch=sorted_dispatch,
+            pipeline_shadow=pipeline_shadow, aniso_taps=aniso_taps, trainable=trainable,
         )
+        if sb > 1:
+            r = r.reshape(sb, n, 3).sum(0)
+            sn = sn.reshape(sb, n, 3).sum(0)
+            sa = sa.reshape(sb, n).sum(0)
         c = c + r
         nrm = nrm + sn
         a = a + sa
@@ -555,14 +667,18 @@ def frame_pixels(width: int, height: int, device):
 
 def render_pass(scene, cam_params, seed: int, sample_offset: int, n_samples: int,
                 *, width: int, height: int, max_depth: int, tracer,
-                film_strata: int = 1, mis: bool = False, aniso_taps: int = 0,
-                sorted_dispatch: bool = True, trainable: tuple | None = None):
-    """Accumulate ``n_samples`` samples for the full frame."""
+                film_strata: int = 1, mis: bool = False, spp_batch: int = 1,
+                depth_unroll: int = 1, sample_unroll: int = 1, remat: bool = False,
+                sorted_dispatch: bool = True, pipeline_shadow: bool = False,
+                aniso_taps: int = 0, trainable: tuple | None = None):
+    """Accumulate ``n_samples`` samples for the full frame (the keywords:
+    render_pass_pixels')."""
     px, py = frame_pixels(width, height, scene.device)
     return render_pass_pixels(
         scene, cam_params, seed, sample_offset, n_samples, px, py,
         max_depth=max_depth, tracer=tracer, film_strata=film_strata, mis=mis,
-        aniso_taps=aniso_taps, sorted_dispatch=sorted_dispatch, trainable=trainable,
+        spp_batch=spp_batch, remat=remat, sorted_dispatch=sorted_dispatch,
+        pipeline_shadow=pipeline_shadow, aniso_taps=aniso_taps, trainable=trainable,
     )
 
 

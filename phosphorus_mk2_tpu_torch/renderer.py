@@ -8,7 +8,8 @@ tracer each; each pass accumulates ``samples_per_pass`` samples into
 device-resident sums, every shard's block of pixels in sequential chunks
 of at most ``max_wavefront`` pixels (so no device holds more; the JAX
 package splits each chunk over the shards instead, and the films are
-the same: a pixel's samples do not depend on the wavefront it rides in);
+the same: a pixel's samples do not depend on the wavefront it rides in;
+with ``spp_batch`` each trace runs that many times a chunk's pixels);
 the film comes back to the host after every pass, all-gathered across
 ranks, so that every rank holds all of it.
 
@@ -68,7 +69,8 @@ class Renderer:
         self.fn, self.px, self.py, self.n_valid = make_sharded_render(
             self.mesh, self.data, scene.camera, max_depth=o.path_depth,
             use_bvh=o.use_bvh, use_pallas=o.use_pallas, film_strata=self.film_strata,
-            mis=o.mis, tracer_tune=o.tracer_tune, aniso_taps=o.aniso_taps,
+            mis=o.mis, spp_batch=o.spp_batch, remat=o.remat, tracer_tune=o.tracer_tune,
+            aniso_taps=o.aniso_taps,
         )
         self.tracer = self.fn.tracers[self.device]
         # 0 = auto: the JAX package's bounds (the cluster tracer's per-ray
