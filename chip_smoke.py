@@ -15,6 +15,11 @@
     python3 chip_smoke.py --only-options
                                      # phases 1-3, then phase 13 alone (no
                                      # result line)
+    python3 chip_smoke.py --only-shading [--profile]
+                                     # phases 1-3, then phase 14 alone (no
+                                     # result line; --profile adds the
+                                     # device kernels a bounce-step and
+                                     # the gradient steps' backward)
     python3 chip_smoke.py --upto 5 --package DIR
                                      # phases 1-5 of the port in DIR (another
                                      # checkout): its main path timed
@@ -268,7 +273,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (the BMW's first 1 << 16 pixels, 2 spp, depth 3), with and without:
      the gradients within 1e-4 of the scale (max |diff| and bit-equality
      printed), peak memory, seconds a step, launches with the recompute.
-     The timed renders and steps are counted.
+     The timed renders and steps are counted;
+ 14. the un-consolidated shading path (integrator/path.py above
+     HIT_ROW_MAX_TRIS = 262,144 triangles: no hit rows, the hit side
+     shaded from the attribute table, scene.tri_mat and the material
+     tables, as in the JAX package), with the card's name and power
+     limit: (a) terrain_scene 256x256 and textured_terrain_scene (grid
+     512) 256x256 with mis=True, both 4 spp depth 4 use_bvh=True, and the
+     BMW asset 512x512 4 spp depth 4, through Renderer: make_scene_tables
+     builds no hit rows by default; each film under the default and with
+     the threshold raised above the scene (the hit rows), in turns: the
+     two films bit-equal (within rtol 1e-5 checked, bit-equality and the
+     max |diff| printed), the default film equal to a plain=True
+     Renderer's (rtol 1e-5), rays/s (medians of 3), the MT, front and
+     wave kernels' launches a pass (equal under both) and the hit rows'
+     bytes, with --profile the device kernels a bounce-step
+     (torch.profiler); (b) bench
+     bmw_fwd_bwd's gradient step (the first 1 << 16 pixels, 2 spp, depth
+     3, sorted_dispatch=False) on the full-size terrain and the BMW under
+     both branches, in turns: gradients of (emission, lobe_weight,
+     vertices) within 1e-4 of each field's max |g|, seconds a step, peak
+     memory after a reset; with --profile the backward's busy time and
+     indexing_backward_kernel's share. The timed renders and steps are
+     counted.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -1320,10 +1347,11 @@ def main_path(mt, front, wave, ct, probe, pt, scenes, dev):
             stats = terrain_film_checks(film, label, env)
             bvh = r.data.bvh
             k, k2 = bvh["cluster_bmin"].shape[0], bvh["sc_bmin"].shape[0]
-            tables = make_scene_tables(r.data)
-            row_bytes = sum(tables[t].numel() * tables[t].element_size() for t in ("hit_f", "hit_i"))
+            # above HIT_ROW_MAX_TRIS the hit side shades from the attribute tables
+            check("hit_f" not in make_scene_tables(r.data),
+                  f"{label}: {r.data.num_tris} triangles, yet hit rows were built")
             stats += (f"; {r.data.num_tris} triangles, K {k} clusters, K2 {k2} superclusters, "
-                      f"hit rows {tuple(tables['hit_f'].shape)} {row_bytes} bytes")
+                      "no hit rows (the attribute tables)")
             check(k > 2048, f"{label}: K = {k} clusters do not take the hierarchical front table")
         elif checks == "heavy":
             stats = heavy_film_checks(film, label, r.data)
@@ -4008,8 +4036,251 @@ def options_phase(pt, ct, mt, front, wave, bench, scenes, dev, smi):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the un-consolidated shading path
+# ---------------------------------------------------------------------------
 
-def run(profile: bool, upto: int, only_tunables: bool = False, only_options: bool = False) -> int:
+SHADING_TURNS = 3        # timed turns of each branch, in one run
+BRANCHES = ("attribute tables", "hit rows")  # the default above HIT_ROW_MAX_TRIS first
+
+
+@contextlib.contextmanager
+def shading_branch(path, data, branch):
+    """Inside, make_scene_tables gives ``data`` the hit rows ("hit rows":
+    the threshold raised to its triangle count) or not ("attribute
+    tables": JAX's threshold, which the scene is above), checked."""
+    saved = path.HIT_ROW_MAX_TRIS
+    check(data.num_tris > saved, f"{data.num_tris} triangles are not above HIT_ROW_MAX_TRIS")
+    rows = branch == "hit rows"
+    if rows:
+        path.HIT_ROW_MAX_TRIS = data.num_tris
+    try:
+        check(("hit_f" in path.make_scene_tables(data)) is rows,
+              f"make_scene_tables does not take the {branch} branch")
+        yield
+    finally:
+        path.HIT_ROW_MAX_TRIS = saved
+
+
+def hit_row_bytes(path, data):
+    """Bytes of the hit rows (hit_f and hit_i) the scene would have."""
+    with shading_branch(path, data, "hit rows"):
+        tables = path.make_scene_tables(data)
+        return sum(tables[k].numel() * tables[k].element_size() for k in ("hit_f", "hit_i"))
+
+
+def launches_a_step(fn, steps):
+    """Device kernels of fn() under torch.profiler, over its bounce-steps,
+    and the busy seconds; (None, None) when no device event was traced."""
+    torch.cuda.synchronize()
+    _, kernels, _ = device_events(fn)
+    if not kernels:
+        return None, None
+    return len(kernels) / steps, sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+
+
+def shading_forward(pt, path, ct, cases, dev, count, profile):
+    """14a: each scene through Renderer under both branches, in turns: no
+    hit rows by default; the two films bit-equal (checked within phase
+    6's rtol 1e-5, bit-equality and the max |diff| printed); the default
+    film against a Renderer with plain=True (rtol 1e-5); rays/s (medians
+    of SHADING_TURNS), the MT, front and wave kernels' launches a pass
+    (equal under both branches); with --profile the device kernels a
+    bounce-step (torch.profiler, one render of each branch: 31-87 s a
+    scene on the H100, so not by default). The timed renders are counted;
+    the warm-ups, the profiled renders and the plain film not."""
+    out = {}
+    for label, scene, kw in cases:
+        clock = [time.perf_counter()]
+        r = pt.Renderer(scene, pt.Options(**kw), device=dev)
+        data = r.data
+        check("hit_f" not in path.make_scene_tables(data),
+              f"{label}: {data.num_tris} triangles, yet hit rows by default")
+        w, h = scene.camera.width, scene.camera.height
+        spp, depth = kw["samples_per_pixel"], kw["path_depth"]
+        rays = w * h * spp * depth * 2
+        steps = spp * math.ceil(w * h / r.max_wavefront) * depth
+
+        def render(branch):
+            with shading_branch(path, data, branch):
+                return measured(count, ct, r.render)
+
+        for b in BRANCHES:  # warm-ups
+            with shading_branch(path, data, b):
+                r.render()
+        clock.append(time.perf_counter())
+        runs = in_turns(BRANCHES, render, SHADING_TURNS)
+        clock.append(time.perf_counter())
+        films = {b: runs[b][0]["out"]["color"] for b in BRANCHES}
+        for b, rs in runs.items():
+            check(all(np.array_equal(x["out"]["color"], films[b]) for x in rs),
+                  f"{label} {b}: the turns' films differ")
+        attr, rows = films[BRANCHES[0]], films[BRANCHES[1]]
+        check(np.isfinite(attr).all() and attr.mean() > 0, f"{label}: film not finite or black")
+        equal = bool(np.array_equal(attr, rows))
+        diff = float(np.abs(attr - rows).max())
+        plain = pt.Renderer(scene, pt.Options(**kw, tracer_tune={"plain": True}),
+                            device=dev).render()["color"]
+        clock.append(time.perf_counter())
+        plain_diff = float(np.abs(attr - plain).max())
+        res = {"triangles": data.num_tris, "hit_row_bytes": hit_row_bytes(path, data),
+               "films_bit_equal": equal, "films_max_abs_diff": diff,
+               "kernels_vs_plain_max_abs_diff": plain_diff}
+        for b in BRANCHES:
+            row = summary(runs[b], rays)
+            row["device_launches_a_bounce_step"] = row["profiled_busy_s"] = None
+            if profile:
+                with shading_branch(path, data, b):
+                    row["device_launches_a_bounce_step"], row["profiled_busy_s"] = \
+                        launches_a_step(r.render, steps)
+            res[b] = row
+            print(f"{label} ({data.num_tris} triangles), {b}: {row['s']:.6f} s "
+                  f"({', '.join(f'{x:.6f}' for x in row['s_turns'])}), "
+                  f"{row['rays_per_s'] / 1e6:.4f} Mrays/s (median of {SHADING_TURNS} turns); "
+                  f"peak {row['peak_bytes']} bytes ({row['transient_bytes']} above the scene); "
+                  f"launches a pass {row['launches']}; tracer {row['traced']}; device kernels "
+                  + (f"a bounce-step {row['device_launches_a_bounce_step']} (of {steps}), busy "
+                     f"{row['profiled_busy_s']} s" if profile
+                     else "a bounce-step not measured (--profile)"), flush=True)
+        clock.append(time.perf_counter())
+        res["seconds"] = dict(zip(("set-up and warm-ups", "turns", "plain", "profiled"),
+                                  np.diff(clock).tolist()))
+        print(f"{label}: films of the two branches bit-equal {equal} (max |diff| {diff:.3g}); "
+              f"vs plain=True max |diff| {plain_diff:.3g}; the hit rows would take "
+              f"{res['hit_row_bytes']} bytes; seconds {res['seconds']}", flush=True)
+        check(equal or np.allclose(attr, rows, rtol=1e-5, atol=0.0),
+              f"{label}: the two branches' films differ by {diff}")
+        check(np.allclose(attr, plain, rtol=1e-5, atol=0.0),
+              f"{label}: the kernels' film differs from plain=True's by {plain_diff}")
+        la, lr = res[BRANCHES[0]]["launches"], res[BRANCHES[1]]["launches"]
+        check(la == lr and la.get("wave_mt", 0) > 0 and la.get("front_full", 0) > 0,
+              f"{label}: kernel launches {la} under the attribute tables, {lr} with hit rows")
+        out[label] = res
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def backward_profile(graph):
+    """--profile: the backward of graph() (the forward builds the graph
+    unprofiled) under torch.profiler: its kernels, busy seconds and
+    indexing_backward_kernel's share of them."""
+    loss = graph()
+    torch.cuda.synchronize()
+    _, kernels, _ = device_events(loss.backward)
+    if not kernels:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    ib = sum(e.time_range.elapsed_us() for e in kernels if "indexing_backward" in e.name) / 1e6
+    return {"kernels": len(kernels), "busy_s": busy, "index_backward_s": ib,
+            "index_backward_share": ib / busy if busy else None}
+
+
+def shading_gradients(path, ct, cases, dev, count, profile):
+    """14b: bench bmw_fwd_bwd's gradient step (the first 1 << 16 pixels, 2
+    spp, depth 3, sorted_dispatch=False; d color.sum() / d (emission,
+    lobe_weight, vertices)) under both branches, in turns: the gradients
+    within 1e-4 of each field's max |g| (phase 8's bound), seconds a step,
+    peak memory after a reset, launches; under --profile the backward's
+    busy seconds and indexing_backward_kernel's share. The timed steps are
+    counted; the warm-ups and the profiled steps not."""
+    import dataclasses
+
+    from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
+
+    n, spp, depth = 1 << 16, 2, 3
+    out = {}
+    for label, scene, data in cases:
+        w = scene.camera.width
+        cam = camera_to_params(scene.camera, dev)
+        tracer = path.make_tracer(data, use_bvh=True)
+        check(tracer[0].func is ct.intersect_clusters, f"{label}: not the cluster tracer")
+        ids = torch.arange(n, dtype=torch.int64, device=dev)
+        px, py = ids % w, ids // w
+
+        def graph(spp=spp):
+            leaves = {f: getattr(data, f).detach().clone().requires_grad_() for f in GRAD_FIELDS}
+            sums = path.render_pass_pixels(dataclasses.replace(data, **leaves), cam, 0, 0, spp,
+                                           px, py, max_depth=depth, tracer=tracer,
+                                           sorted_dispatch=False)
+            return sums["color"].sum(), leaves
+
+        def step(branch, spp=spp):
+            with shading_branch(path, data, branch):
+                loss, leaves = graph(spp)
+                loss.backward()
+            return {f: leaves[f].grad for f in GRAD_FIELDS}
+
+        t0 = time.perf_counter()
+        for b in BRANCHES:  # warm-ups
+            step(b, 1)
+        runs = in_turns(BRANCHES, lambda b: measured(count, ct, lambda: step(b)), SHADING_TURNS)
+        rays = n * spp * depth * 2
+        g_attr, g_rows = runs[BRANCHES[0]][0]["out"], runs[BRANCHES[1]][0]["out"]
+        for f in GRAD_FIELDS:
+            check(bool(torch.isfinite(g_attr[f]).all()) and float(g_attr[f].abs().max()) > 0,
+                  f"{label}: the {f} gradient under the attribute tables")
+        errs = {f: grad_err(g_attr[f], g_rows[f]) for f in GRAD_FIELDS}
+        res = {"rel_err": errs, "grads": (g_attr, g_rows)}
+        for b in BRANCHES:
+            row = summary(runs[b], rays)
+            if profile:
+                with shading_branch(path, data, b):
+                    row["backward_profile"] = backward_profile(lambda: graph()[0])
+            res[b] = row
+            print(f"{label} gradient step, {b}: {row['s']:.6f} s "
+                  f"({', '.join(f'{x:.6f}' for x in row['s_turns'])}), "
+                  f"{row['rays_per_s'] / 1e6:.4f} Mrays/s (median of {SHADING_TURNS}); peak "
+                  f"{row['peak_bytes']} bytes ({row['transient_bytes']} above the scene); "
+                  f"launches {row['launches']}; tracer {row['traced']}"
+                  + (f"; backward {row['backward_profile']}" if profile else ""), flush=True)
+        res["seconds"] = time.perf_counter() - t0
+        print(f"{label} gradients, attribute tables vs hit rows: "
+              + ", ".join(f"{f} {e:.3g} of the scale" for f, e in errs.items())
+              + f"; {res['seconds']:.1f} s", flush=True)
+        out[label] = res
+    for label, res in out.items():  # checked once every case has printed its numbers
+        check_grads(f"{label} attribute tables vs hit rows", *res.pop("grads"), 1e-4)
+    return out
+
+
+def shading_phase(pt, ct, mt, front, wave, bench, scenes, terrain, terrain_data, dev, smi,
+                  profile):
+    """Phase 14. Its main path is the timed renders and steps of 14a-b,
+    each counted from 0 just before and read just after. Returns the
+    launches."""
+    from phosphorus_mk2_tpu_torch.integrator import path
+
+    t0 = time.perf_counter()
+    check(path.HIT_ROW_MAX_TRIS == 1 << 18, f"HIT_ROW_MAX_TRIS is {path.HIT_ROW_MAX_TRIS}")
+    bmw_scene, bmw_data = bench.load_bmw(dev)
+    print(f"BMW loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    check(bmw_data.num_tris == BMW_TRIS, f"BMW: {bmw_data.num_tris} triangles, not {BMW_TRIS}")
+    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
+    count = launch_counter((mt, front, wave), totals)
+    fwd = dict(use_bvh=True, samples_per_pixel=4, samples_per_pass=4, path_depth=4)
+    res = {"forward": shading_forward(pt, path, ct, [
+        ("terrain_scene 256x256 4 spp depth 4", scenes.terrain_scene(width=256, height=256),
+         fwd),
+        ("textured_terrain_scene 256x256 4 spp depth 4 mis",
+         scenes.textured_terrain_scene(grid=512, width=256, height=256), dict(fwd, mis=True)),
+        ("BMW 512x512 4 spp depth 4", bmw_scene, fwd)], dev, count, profile)}
+    res["gradient"] = shading_gradients(path, ct, [
+        ("terrain_scene 1 << 16 pixels 2 spp depth 3", terrain, terrain_data),
+        ("BMW 1 << 16 pixels 2 spp depth 3", bmw_scene, bmw_data)], dev, count, profile)
+    for k in ("front_full", "wave_mt"):
+        check(totals[k] > 0, f"phase 14: {k} was not launched")
+    res["launches_counted"] = totals
+    res["device"] = smi
+    res["s"] = time.perf_counter() - t0
+    print(json.dumps({"shading": res}, default=str), flush=True)
+    print(f"phase 14: {res['s']:.1f} s; {smi}", flush=True)
+    return totals
+
+
+
+def run(profile: bool, upto: int, only_tunables: bool = False, only_options: bool = False,
+        only_shading: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -4067,6 +4338,13 @@ def run(profile: bool, upto: int, only_tunables: bool = False, only_options: boo
         from phosphorus_mk2_tpu_torch import bench
 
         options_phase(pt, ct, mt, front, wave, bench, scenes, dev, smi)
+        return 0
+    if only_shading:
+        phase("14 the un-consolidated shading path (alone)")
+        from phosphorus_mk2_tpu_torch import bench
+
+        shading_phase(pt, ct, mt, front, wave, bench, scenes, terrain, terrain_data, dev, smi,
+                      profile)
         return 0
     if upto < 4:
         return 0
@@ -4131,10 +4409,17 @@ def run(profile: bool, upto: int, only_tunables: bool = False, only_options: boo
 
     phase("13 the integrator's options")
     option_launches = options_phase(pt, ct, mt, front, wave, bench, scenes, dev, smi)
+    if upto < 14:
+        return 0
+
+    phase("14 the un-consolidated shading path")
+    shading_launches = shading_phase(pt, ct, mt, front, wave, bench, scenes, terrain,
+                                     terrain_data, dev, smi, profile)
     for row in rows:  # the kernels line counts the main path of every phase
         row["launches"] += (grad_launches[row["name"]] + io_launches[row["name"]]
                             + entry_launches[row["name"]] + oracle_launches[row["name"]]
-                            + tune_launches[row["name"]] + option_launches[row["name"]])
+                            + tune_launches[row["name"]] + option_launches[row["name"]]
+                            + shading_launches[row["name"]])
         if row["max_abs_err"] is None:  # a new instance: its parity is phase 12's
             row["max_abs_err"] = tune_errs[row["name"]]
     names = [row["name"] for row in rows]
@@ -4158,13 +4443,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one pass of each main-path render with torch.profiler")
-    ap.add_argument("--upto", type=int, default=13, metavar="PHASE",
+    ap.add_argument("--upto", type=int, default=14, metavar="PHASE",
                     help="stop after this phase (2 or 3: build and parity only, for a "
                          "first look at a new kernel); prints no result line")
     ap.add_argument("--only-tunables", action="store_true",
                     help="phases 1-3, then phase 12 alone (no result line)")
     ap.add_argument("--only-options", action="store_true",
                     help="phases 1-3, then phase 13 alone (no result line)")
+    ap.add_argument("--only-shading", action="store_true",
+                    help="phases 1-3, then phase 14 alone (no result line)")
     ap.add_argument("--sweep-timing", action="store_true",
                     help="only time wave_sweep at phase 7's shapes and print one JSON line "
                          "(no result line)")
@@ -4182,11 +4469,13 @@ def main() -> int:
             return 2
         return sweep_timing_only([int(x) for x in args.m.split(",") if x])
     try:
-        rc = run(args.profile, args.upto, args.only_tunables, args.only_options)
+        rc = run(args.profile, args.upto, args.only_tunables, args.only_options,
+                 args.only_shading)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if rc == 0 and (args.upto < 13 or args.only_tunables or args.only_options):
+    if rc == 0 and (args.upto < 14 or args.only_tunables or args.only_options
+                    or args.only_shading):
         print(f"chip_smoke: stopped after phase {args.upto}; no result", file=sys.stderr)
     return rc
 

@@ -35,6 +35,7 @@ from phosphorus_mk2_tpu_torch.core.texture import (
     sample_texture_any,
 )
 from phosphorus_mk2_tpu_torch.math.fresnel import dielectric
+from phosphorus_mk2_tpu_torch.math.grad_gather import gather_rows
 from phosphorus_mk2_tpu_torch.math.sampling import remap_index_sample
 from phosphorus_mk2_tpu_torch.math.vec import dot
 
@@ -92,7 +93,8 @@ def hit_row_tables(scene, attr):
     if scene.has_normal_maps:
         icols += [scene.normal_tex[tm][:, None]]
     hit_i = torch.cat(icols, dim=1).to(torch.float32)
-    hit_f = torch.cat([attr, mat_f[tm], nee[:, None], hit_i], dim=1)
+    # every triangle sums into one of a few material rows in the backward
+    hit_f = torch.cat([attr, gather_rows(mat_f, tm, "float64"), nee[:, None], hit_i], dim=1)
     layout = {
         "attr_w": attr.shape[1],
         "lu": lu,
@@ -150,9 +152,11 @@ def gather_hit_rows(hit_f, idx, layout=None, trainable=None):
     )
 
 
-def unpack_hit_rows(scene, hrow, layout):
+def unpack_hit_rows(scene, hrow, irow, layout):
     """Parse gathered consolidated rows into (mat_id (N,), emission (N,3),
-    lobes dict, nee_pdf (N,), tex dict). The tex dict holds, when the
+    lobes dict, nee_pdf (N,), tex dict). irow: the gathered integer
+    block (hit_i rows), or None to read it from hrow's exact small-int
+    float columns (the one-gather form). The tex dict holds, when the
     scene has them, emission_tex (N,) and lobe_tex (N, Lu), and
     normal_tex (N,)."""
     aw, lu, p = layout["attr_w"], layout["lu"], layout["p"]
@@ -161,7 +165,7 @@ def unpack_hit_rows(scene, hrow, layout):
     weight = hrow[:, aw + 3 : aw + 3 + lu * 3].reshape(n, lu, 3)
     param = hrow[:, aw + 3 + lu * 3 : aw + 3 + lu * (3 + p)].reshape(n, lu, p)
     nee_pdf = hrow[:, aw + 3 + lu * (3 + p)]
-    irow = hrow[:, layout["int_off"] :].to(torch.int64)
+    irow = (hrow[:, layout["int_off"] :] if irow is None else irow).to(torch.int64)
     lobes = {
         "type": irow[:, 1 : 1 + lu],
         "weight": weight,
@@ -184,13 +188,15 @@ def unpack_hit_rows(scene, hrow, layout):
 
 def gather_lobes(scene, mat_id, tables=None) -> dict:
     """Per-hit lobe arrays for a wavefront of material ids (N,).
-    tables: optional material_tables(scene) (two gathers instead of five)."""
+    tables: optional material_tables(scene) (two gathers instead of five).
+    The float rows are gathered with gather_rows' "float64" backward:
+    every lane sums into one of a few material rows."""
     mat_id = mat_id.long()
     if tables is None:
         gathered = {
             "type": scene.lobe_type[mat_id].long(),
-            "weight": scene.lobe_weight[mat_id],
-            "param": scene.lobe_param[mat_id],
+            "weight": gather_rows(scene.lobe_weight, mat_id, "float64"),
+            "param": gather_rows(scene.lobe_param, mat_id, "float64"),
             "flags": scene.lobe_flags[mat_id].long(),
             "n": scene.n_lobes[mat_id].long(),
         }
@@ -198,7 +204,7 @@ def gather_lobes(scene, mat_id, tables=None) -> dict:
         fl, il = tables
         n = mat_id.shape[0]
         _, L = scene.lobe_type.shape
-        frow = fl[mat_id]
+        frow = gather_rows(fl, mat_id, "float64")
         irow = il[mat_id].long()
         gathered = {
             "type": irow[:, :L],
@@ -286,11 +292,14 @@ def _sample_any(scene, tex_id, uv, footprint=None):
                           footprint=footprint)
 
 
-def emission_at(scene, mat_id, st=None, footprint=None):
+def emission_at(scene, mat_id, st=None, tables=None, footprint=None):
     """Per-hit emission of material ids (N,), texture-modulated when the
-    material has an emission texture."""
+    material has an emission texture. tables (material_tables) is
+    accepted and unused, as in the JAX package: the emission gather
+    stays apart from the wide material rows. The gather has gather_rows'
+    "float64" backward: every lane sums into one of a few rows."""
     mat_id = mat_id.long()
-    e = scene.emission[mat_id]
+    e = gather_rows(scene.emission, mat_id, "float64")
     if not scene.has_textures:
         return e
     t = scene.emission_tex[mat_id]

@@ -47,24 +47,45 @@ def light_tri_table(scene, attr) -> torch.Tensor:
     return torch.cat(cols, dim=1)
 
 
-def sample_lights(scene, u_pick, u_tri, u_uv, meta, lt_table, attr_w: int) -> dict:
+def sample_lights(scene, u_pick, u_tri, u_uv, attr=None, meta=None, lt_table=None,
+                  attr_w: int | None = None) -> dict:
     """Sample one light point per wavefront entry.
 
     u_pick, u_tri, u_uv: (N,) uniforms (u_tri is remapped for the
     triangle pick and reused for the barycentric x, as the reference
-    does). meta: light_meta_table; lt_table: light_tri_table.
+    does). attr: optional triangle_attribute_table; meta: optional
+    light_meta_table (None: one gather a light field; else one gather of
+    its int32 rows at every light count: the JAX package's broadcast
+    select for at most 4 lights gives the same values and saves a TPU
+    launch, but is several launches in eager PyTorch);
+    lt_table: optional light_tri_table, read at light_offset + pick
+    without the light_tris indirection (None: through light_tris, from
+    attr or, without it, from faces and vertices); attr_w: the attribute
+    width inside lt_table's rows (default: the row's width less the
+    emission and, in a textured scene, its texture column; the JAX
+    package subtracts 3 whatever the scene, which in a textured scene
+    reads the emission one column late).
 
     Returns dict: p (N,3), n (N,3), pdf (N,) area pdf over the light
-    count, mat (N,), valid (N,), st (N,2), e (N,3) the emission and etex
-    (N,) its emission-texture id (-1 off area lights), or None in an
-    untextured scene (callers modulate e by the texture at st).
+    count, mat (N,), valid (N,), st (N,2); with lt_table also e (N,3)
+    the emission and etex (N,) its emission-texture id (-1 off area
+    lights), or None in an untextured scene (callers modulate e by the
+    texture at st). Without lt_table there is no e: callers read the
+    emission of mat (bsdf.emission_at).
     """
     nl = scene.num_lights
     light_idx, _ = remap_index_sample(u_pick, nl)
-    row = meta[light_idx]
-    ltype, lmat, loffset = row[..., 0], row[..., 1], row[..., 2]
-    lcount_raw = row[..., 3]
-    larea = row[..., 4].contiguous().view(torch.float32)
+    if meta is None:
+        ltype = scene.light_type[light_idx]
+        lmat = scene.light_mat[light_idx]
+        loffset = scene.light_offset[light_idx]
+        lcount_raw = scene.light_count[light_idx]
+        larea = scene.light_area[light_idx]
+    else:
+        row = meta[light_idx]
+        ltype, lmat, loffset = row[..., 0], row[..., 1], row[..., 2]
+        lcount_raw = row[..., 3]
+        larea = row[..., 4].contiguous().view(torch.float32)
     lcount = torch.clamp(lcount_raw, min=1)
 
     # area light: uniform triangle pick with sample reuse
@@ -72,13 +93,27 @@ def sample_lights(scene, u_pick, u_tri, u_uv, meta, lt_table, attr_w: int) -> di
     bary = triangle_sample(torch.stack([u_rem, u_uv], dim=-1))
     bu, bv = bary[..., 0], bary[..., 1]
 
-    lrow = lt_table[loffset.long() + tri_sel]
-    a, b, c = lrow[..., 0:3], lrow[..., 3:6], lrow[..., 6:9]
-    e_area = lrow[..., attr_w : attr_w + 3]
-    etex_area = lrow[..., attr_w + 3].to(torch.int64) if scene.has_textures else None
     # the light-side shading normal uses the *hit* convention on the
     # same (u, v) — the reference's convention mismatch (spt.hpp:245)
-    sp = shading_parameters(scene, loffset, bu, bv, row=lrow)
+    e_area = etex_area = None
+    if lt_table is not None:
+        # the light-triangle row: attributes and emission in one gather
+        lrow = lt_table[loffset.long() + tri_sel]
+        a, b, c = lrow[..., 0:3], lrow[..., 3:6], lrow[..., 6:9]
+        # the row is attr | emission 3 [| emission texture 1]
+        aw = attr_w if attr_w is not None else lrow.shape[-1] - 3 - scene.has_textures
+        e_area = lrow[..., aw : aw + 3]
+        etex_area = lrow[..., aw + 3].to(torch.int64) if scene.has_textures else None
+        sp = shading_parameters(scene, loffset, bu, bv, row=lrow)
+    else:
+        gtri = scene.light_tris[loffset.long() + tri_sel].long()
+        if attr is None:
+            f = scene.faces[gtri].long()
+            a, b, c = (scene.vertices[f[..., k]] for k in range(3))
+        else:
+            arow = attr[gtri]
+            a, b, c = arow[..., 0:3], arow[..., 3:6], arow[..., 6:9]
+        sp = shading_parameters(scene, gtri, bu, bv, attr=attr)
     # reference convention: barycentric_to_point = u*a + v*b + (1-u-v)*c
     p_area = bu[..., None] * a + bv[..., None] * b + (1.0 - bu - bv)[..., None] * c
     n_area = sp["n"]
@@ -91,13 +126,15 @@ def sample_lights(scene, u_pick, u_tri, u_uv, meta, lt_table, attr_w: int) -> di
     # infinite-light samples (LIGHT_INFINITE) stay invalid: zero NEE weight
     is_area = ltype == LIGHT_AREA
 
-    return {
+    out = {
         "p": torch.where(is_area[..., None], p_area, p_inf),
         "n": torch.where(is_area[..., None], n_area, 0.0),
         "pdf": torch.where(is_area, pdf_area, pdf_inf) / nl,
         "mat": lmat,
         "valid": is_area & (lcount_raw > 0),
         "st": torch.where(is_area[..., None], sp["st"], 0.0),
-        "e": torch.where(is_area[..., None], e_area, 0.0),
-        "etex": None if etex_area is None else torch.where(is_area, etex_area, -1),
     }
+    if e_area is not None:
+        out["e"] = torch.where(is_area[..., None], e_area, 0.0)
+        out["etex"] = None if etex_area is None else torch.where(is_area, etex_area, -1)
+    return out

@@ -55,9 +55,11 @@ from phosphorus_mk2_tpu_torch.bsdf.bsdf import (
     bsdf_f,
     bsdf_pdf,
     bsdf_sample,
+    emission_at,
     emission_from_row,
     env_emission_at,
     gather_hit_rows,
+    gather_lobes,
     hit_row_tables,
     is_specular_flags,
     material_tables,
@@ -178,6 +180,11 @@ def tracer_for(tracer, scene):
     return BruteTracer(scene, tracer.plain) if isinstance(tracer, BruteTracer) else tracer
 
 
+# the per-triangle hit rows cost ~(attr_w + 4 + 9 * Lu) floats a triangle;
+# they are built only up to this size, where that is still small beside
+# the geometry itself (the JAX package's threshold)
+HIT_ROW_MAX_TRIS = 1 << 18
+
 # SceneData fields a caller may declare trainable (the gradient-scoping
 # contract shared with optim.InverseRenderer)
 SCOPABLE_FIELDS = ("vertices", "normals", "emission", "lobe_weight", "lobe_param")
@@ -211,25 +218,27 @@ def scope_scene(scene, trainable):
 
 def make_scene_tables(scene) -> dict:
     """The consolidated gather tables trace_sample reads: per-triangle
-    attribute rows, material rows, light rows, per-light-triangle rows,
-    and the per-triangle hit rows (one gather for the whole hit side).
+    attribute rows, material rows, light rows and per-light-triangle rows
+    (the NEE side's attributes and emission in one gather; light
+    triangles are few, so always built), and, up to HIT_ROW_MAX_TRIS
+    triangles, the per-triangle hit rows hit_f / hit_i / hit_layout (the
+    whole hit side in one gather).
 
-    The hit rows are built at every scene size. The JAX package stops
-    building them above HIT_ROW_MAX_TRIS = 262,144 triangles and shades
-    from the attribute table and scene.tri_mat there; both read the same
-    values, so the films agree (tests/test_torch_cluster.py), and the
-    rows' bytes are small beside the card's memory."""
+    Above HIT_ROW_MAX_TRIS there are no hit rows, as in the JAX package:
+    trace_sample then shades from the attribute table, scene.tri_mat and
+    the material tables. Both branches read the same values, so their
+    films are equal (tests/test_torch_shading_path.py)."""
     attr = triangle_attribute_table(scene)
-    hit_f, hit_i, layout = hit_row_tables(scene, attr)
-    return {
+    hit = hit_row_tables(scene, attr) if scene.num_tris <= HIT_ROW_MAX_TRIS else None
+    tables = {
         "attr": attr,
         "mat": material_tables(scene),
         "light": light_meta_table(scene),
         "light_tri": light_tri_table(scene, attr),
-        "hit_f": hit_f,
-        "hit_i": hit_i,
-        "hit_layout": layout,
     }
+    if hit is not None:
+        tables.update(zip(("hit_f", "hit_i", "hit_layout"), hit))
+    return tables
 
 
 def pixel_hash(pixel_x, pixel_y):
@@ -374,8 +383,9 @@ def trace_sample(
         tracer = tracer_for(tracer, scene)
     closest, occluded = tracer
     attr = tables["attr"]
-    hit_f = tables["hit_f"]
-    hit_layout = tables["hit_layout"]
+    mat_tables = tables["mat"]
+    hit_f = tables.get("hit_f")
+    hit_layout = tables.get("hit_layout")
 
     seed32 = rng.seed_word(seed)
     pix = pixel_hash(pixel_x, pixel_y)
@@ -426,27 +436,47 @@ def trace_sample(
         hit = hits["hit"] & alive
         safe_tri = torch.clamp(tri, min=0).long()
 
-        # consolidated hit side: ONE row gather feeds the re-intersection,
-        # shading attributes, material lobes, emission, texture ids and
-        # the NEE pdf
-        hrow = gather_hit_rows(hit_f, safe_tri, hit_layout, trainable)
-        mat_raw, e_row, lobes, nee_pdf_row, texids = unpack_hit_rows(scene, hrow, hit_layout)
-        t_hit, u, v = reintersect(scene, tri, p, d, row=hrow)
-        u = torch.where(hit, u, 0.0)
-        v = torch.where(hit, v, 0.0)
-        sp = shading_parameters(scene, tri, u, v, row=hrow)
-        # material ids feed only the texture and normal-map lookups
-        textured = scene.has_textures or scene.has_normal_maps
-        mat = torch.where(hit, mat_raw, 0) if textured else None
-        wo_view = -d  # toward the previous vertex
-        n_interp = sp["n"]  # before the normal map: the NEE side's cosine
-        fp = None if spread is None else _footprint(plen, t_hit, sp, d, spread, aniso_taps)
-        sp = apply_normal_map(scene, sp, mat, tid=texids.get("normal_tex"), footprint=fp)
-        hp, hn = sp["p"], sp["n"]
-        e_hit = emission_from_row(scene, e_row, texids.get("emission_tex"), sp["st"],
-                                  footprint=fp)
-        lobes = apply_textures(scene, lobes, mat, sp["st"], tex=texids.get("lobe_tex"),
-                               footprint=fp)
+        if hit_f is not None:
+            # consolidated hit side: ONE row gather feeds the
+            # re-intersection, shading attributes, material lobes,
+            # emission, texture ids and the NEE pdf
+            hrow = gather_hit_rows(hit_f, safe_tri, hit_layout, trainable)
+            mat_raw, e_row, lobes, nee_pdf_row, texids = unpack_hit_rows(
+                scene, hrow, None, hit_layout)
+            t_hit, u, v = reintersect(scene, tri, p, d, row=hrow)
+            u = torch.where(hit, u, 0.0)
+            v = torch.where(hit, v, 0.0)
+            sp = shading_parameters(scene, tri, u, v, row=hrow)
+            # material ids feed only the texture and normal-map lookups
+            textured = scene.has_textures or scene.has_normal_maps
+            mat = torch.where(hit, mat_raw, 0) if textured else None
+            wo_view = -d  # toward the previous vertex
+            n_interp = sp["n"]  # before the normal map: the NEE side's cosine
+            fp = None if spread is None else _footprint(plen, t_hit, sp, d, spread, aniso_taps)
+            sp = apply_normal_map(scene, sp, mat, tid=texids.get("normal_tex"), footprint=fp)
+            hp, hn = sp["p"], sp["n"]
+            e_hit = emission_from_row(scene, e_row, texids.get("emission_tex"), sp["st"],
+                                      footprint=fp)
+            lobes = apply_textures(scene, lobes, mat, sp["st"], tex=texids.get("lobe_tex"),
+                                   footprint=fp)
+        else:
+            # no hit rows (above HIT_ROW_MAX_TRIS): the re-intersection
+            # and shading from the attribute table, the material through
+            # scene.tri_mat, lobes and emission from the material tables;
+            # the texture and normal-map ids through the material
+            t_hit, u, v = reintersect(scene, tri, p, d, attr=attr)
+            u = torch.where(hit, u, 0.0)
+            v = torch.where(hit, v, 0.0)
+            sp = shading_parameters(scene, tri, u, v, attr=attr)
+            wo_view = -d
+            mat = torch.where(hit, scene.tri_mat[safe_tri], 0)
+            n_interp = sp["n"]
+            fp = None if spread is None else _footprint(plen, t_hit, sp, d, spread, aniso_taps)
+            sp = apply_normal_map(scene, sp, mat, footprint=fp)
+            hp, hn = sp["p"], sp["n"]
+            e_hit = emission_at(scene, mat, sp["st"], tables=mat_tables, footprint=fp)
+            lobes = apply_textures(scene, gather_lobes(scene, mat, tables=mat_tables), mat,
+                                   sp["st"], footprint=fp)
 
         # 1. emission at first/specular vertices; env on miss
         emit_mask = hit if b == 0 else hit & spec
@@ -458,7 +488,8 @@ def trace_sample(
             # interpolated normal's cosine as sample_lights has it
             dist = t_hit.detach()
             cos_h = dot(n_interp, d).abs()
-            pdf_nee_sa = nee_pdf_row * dist * dist / maximum(cos_h, 1e-12)
+            nee_pdf = nee_pdf_row if hit_f is not None else scene.tri_light_pdf[safe_tri]
+            pdf_nee_sa = nee_pdf * dist * dist / maximum(cos_h, 1e-12)
             w_b = (pdf_prev / maximum(pdf_prev + pdf_nee_sa, 1e-20)).detach()
             mis_mask = hit & ~emit_mask
             radiance = radiance + torch.where(
@@ -488,8 +519,8 @@ def trace_sample(
         # 2. next-event estimation
         if nee_enabled:
             ls = sample_lights(
-                scene, u_light[:, 0], u_light[:, 1], u_light[:, 2],
-                meta=tables["light"], lt_table=tables["light_tri"],
+                scene, u_light[:, 0], u_light[:, 1], u_light[:, 2], attr=attr,
+                meta=tables["light"], lt_table=tables.get("light_tri"),
                 attr_w=attr.shape[1],
             )
             p_off = offset(hp, hn)
@@ -507,7 +538,10 @@ def trace_sample(
                                    torch.where(valid, dist, 0.0).detach())
 
             f = bsdf_f(lobes, hn, wi, wo_view)
-            light_e = emission_from_row(scene, ls["e"], ls["etex"], ls["st"])
+            if "e" in ls:  # the emission came in the light-triangle row
+                light_e = emission_from_row(scene, ls["e"], ls["etex"], ls["st"])
+            else:
+                light_e = emission_at(scene, ls["mat"], ls["st"], tables=mat_tables)
             cos_l = dot(ls["n"], -wi).abs()
             # division guards at 1e-12, as in the JAX package
             pdf_l = ls["pdf"] * dist * dist / maximum(cos_l, 1e-12)

@@ -73,10 +73,12 @@ def test_renderer_film_matches_jax_renderer(case):
 
 
 def test_film_matches_jax_without_hit_rows(monkeypatch):
-    """Above HIT_ROW_MAX_TRIS the JAX package shades from the attribute
-    table and scene.tri_mat instead of consolidated hit rows; the port
-    keeps the rows at every size. Both read the same values: with the JAX
-    threshold set to 0 its film is still the port's."""
+    """Above HIT_ROW_MAX_TRIS both packages shade from the attribute
+    table and scene.tri_mat instead of consolidated hit rows. Here only
+    the JAX threshold is set to 0, so its branch without rows meets the
+    port's hit rows: both read the same values, so the films agree
+    (tests/test_torch_shading_path.py holds the two packages' branches
+    without rows against each other)."""
     monkeypatch.setattr(jpath, "HIT_ROW_MAX_TRIS", 0)
     jd = jscenes.multi_bsdf_scene(W, H).build()
     assert "hit_f" not in jpath.make_scene_tables(jd)

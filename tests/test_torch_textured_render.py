@@ -285,7 +285,7 @@ def test_hit_rows_with_texture_columns(normal_maps):
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     idx = np.random.RandomState(3).randint(0, td.num_tris, 300)
     jm, je, jlobes, jnee, jtex = jbsdf.unpack_hit_rows(jd, jf[jnp.asarray(idx)], None, jl)
-    tm, te, tlobes, tnee, ttex = tbsdf.unpack_hit_rows(td, tf[torch.from_numpy(idx)], tl)
+    tm, te, tlobes, tnee, ttex = tbsdf.unpack_hit_rows(td, tf[torch.from_numpy(idx)], None, tl)
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(te.numpy(), np.asarray(je))
     np.testing.assert_array_equal(tnee.numpy(), np.asarray(jnee))
