@@ -20,6 +20,9 @@
                                      # result line; --profile adds the
                                      # device kernels a bounce-step and
                                      # the gradient steps' backward)
+    python3 chip_smoke.py --only-blender
+                                     # phases 1-3, then phase 15 alone (no
+                                     # result line)
     python3 chip_smoke.py --upto 5 --package DIR
                                      # phases 1-5 of the port in DIR (another
                                      # checkout): its main path timed
@@ -295,7 +298,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      vertices) within 1e-4 of each field's max |g|, seconds a step, peak
      memory after a reset; with --profile the backward's busy time and
      indexing_backward_kernel's share. The timed renders and steps are
-     counted.
+     counted;
+ 15. the Blender add-on (phosphorus_mk2_tpu_torch/blender/), driven
+     through tools/blender_stub.py's bpy, depsgraph and engine harness
+     (Blender is not on the card's machine), with the card's name and
+     power limit: (a) the BMW asset (scale 1.0, 887,604 triangles) as a
+     depsgraph with loops and the uv layer, exported by the add-on's
+     exporter (its meshes' vertices and faces bit-equal to the asset's,
+     the material ids the asset's through the exporter's table) and
+     rendered by PhosphorusRenderEngine.render on the card at 512x512
+     with the add-on's settings but 8 spp (two passes) and the Normal
+     pass: Combined and Normal bit-equal, after the y-flip, to the last
+     film of a Renderer of the exported scene with the same Options;
+     front_full, wave_mt and wave_sweep launched; stub, export, Renderer
+     set-up (beside the asset scene's, which has no corner attributes)
+     and pass seconds, Mrays/s and the peak memory printed; (b)
+     the JAX add-on test's two-view quad at 64x48 through the engine:
+     each eye's passes bit-equal to a Renderer on that eye's camera, the
+     eyes apart, mt_closest and mt_anyhit launched, and a test_break
+     after the first pass that leaves one pass written. The engine
+     renders of (a) and (b)'s stereo render are counted.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -4279,8 +4301,215 @@ def shading_phase(pt, ct, mt, front, wave, bench, scenes, terrain, terrain_data,
 
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the Blender add-on, driven through a stub bpy
+# ---------------------------------------------------------------------------
+
+BLENDER_SPP = 8      # two progressive passes at the add-on's 4 samples a pass
+
+
+def options_of(pt, s):
+    """The Options the add-on's engine makes of its render settings."""
+    return pt.Options(samples_per_pixel=s.samples_per_pixel, paths_per_sample=s.paths_per_sample,
+                      path_depth=s.max_depth, samples_per_pass=s.samples_per_pass,
+                      use_bvh=s.use_bvh)
+
+
+def engine_on(dev, views=(), break_after=None):
+    """The add-on's render engine on the stub's harness, rendering on dev."""
+    from phosphorus_mk2_tpu_torch.blender.engine import PhosphorusRenderEngine
+    from phosphorus_mk2_tpu_torch.tools import blender_stub
+
+    class Engine(blender_stub.EngineHarness, PhosphorusRenderEngine):
+        device = str(dev)
+
+    return Engine(views, break_after)
+
+
+def passes_vs_renderer(pt, eng, scene, settings, view, dev, label):
+    """The engine's Combined and Normal passes of ``view`` against the last
+    film of a Renderer of ``scene`` with the engine's Options, y-flipped:
+    bit for bit. Returns the Renderer's set-up seconds."""
+    t0 = time.perf_counter()
+    r = pt.Renderer(scene, options_of(pt, settings), device=dev)
+    t_build = time.perf_counter() - t0
+    film = list(r.passes())[-1][0]
+    w, h = scene.camera.width, scene.camera.height
+    want = np.ones((h, w, 4), np.float32)
+    want[..., :3] = film["color"]
+    want[..., 3] = film["alpha"]
+    pairs = [("Combined", want)] + ([("Normal", film["normal"])] if settings.normal_pass else [])
+    for name, ref in pairs:
+        got = eng.rect(name, view)
+        check(got is not None, f"{label}: the engine wrote no {name} pass")
+        ref = np.ascontiguousarray(ref[::-1], np.float32).reshape(-1)
+        check(np.array_equal(got.view(np.uint32), ref.view(np.uint32)),
+              f"{label}: the {name} pass differs from Renderer's film in "
+              f"{int((got != ref).sum())} values, max |diff| {np.abs(got - ref).max():.3g}")
+    check(np.isfinite(want).all() and want[..., :3].mean() > 0, f"{label}: film not finite or black")
+    return t_build
+
+
+def blender_bmw(pt, dev, count, smi, scale=1.0, res=512):
+    """15a: the BMW asset (tools/bmw_asset.py) presented as a depsgraph by
+    the stub, exported by the add-on's exporter and rendered through
+    PhosphorusRenderEngine.render at res x res with the add-on's settings
+    but BLENDER_SPP samples and the Normal pass. The engine's render is
+    counted."""
+    import tempfile
+
+    from phosphorus_mk2_tpu_torch.blender.exporter import export_scene
+    from phosphorus_mk2_tpu_torch.tools import blender_stub, bmw_asset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        asset = bmw_asset.load_scene(bmw_asset.write_asset(os.path.join(tmp, "bmw.abc"), scale),
+                                     res, res)
+    tris = sum(m.num_faces for m in asset.meshes)
+    settings = blender_stub.default_settings(samples_per_pixel=BLENDER_SPP, normal_pass=True)
+    t0 = time.perf_counter()
+    dg = blender_stub.depsgraph_from_scene(asset, settings)
+    t_stub = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exported = export_scene(dg, dg.scene)
+    t_export = time.perf_counter() - t0
+
+    # the geometry is the asset's, bit for bit; the material ids are the
+    # asset's through the exporter's table: __default 0, then each
+    # material in the order the faces first use it
+    check(len(exported.meshes) == len(asset.meshes), "BMW export: the meshes differ in number")
+    first_use = {}
+    for a, e in zip(asset.meshes, exported.meshes):
+        check(np.array_equal(a.vertices.view(np.uint32), e.vertices.view(np.uint32))
+              and np.array_equal(a.faces, e.faces), f"BMW export: mesh {a.name} is not the asset's")
+        ids = asset._resolve_face_materials(a)
+        for m in dict.fromkeys(ids.tolist()):
+            first_use.setdefault(m, 1 + len(first_use))
+        lut = np.zeros(len(asset.materials), np.int32)
+        lut[list(first_use)] = list(first_use.values())
+        check(np.array_equal(e.material, lut[ids]), f"BMW export: mesh {a.name}'s material ids")
+
+    eng = engine_on(dev)
+    before = torch.cuda.memory_allocated()
+    (_, secs, peak), launches = count(lambda: timed(lambda: eng.render(dg)))
+    n_pass = BLENDER_SPP // settings.samples_per_pass
+    check(eng.updates == n_pass and eng.progress[-1] == 1.0 and eng.ended,
+          f"BMW engine: {eng.updates} updates, progress {eng.progress}")
+    t_build = passes_vs_renderer(pt, eng, exported, settings, None, dev, "BMW engine")
+    t0 = time.perf_counter()
+    pt.Renderer(asset, options_of(pt, settings), device=dev)  # no corner attributes
+    t_asset_build = time.perf_counter() - t0
+    pass_s = eng.update_times[-1] - eng.update_times[-2]
+    rays = res * res * settings.samples_per_pass * settings.max_depth * 2
+    out = {"triangles": tris, "meshes": len(asset.meshes), "stub_s": t_stub,
+           "export_s": t_export, "build_s": t_build, "asset_build_s": t_asset_build,
+           "engine_render_s": secs,
+           "pass_s": pass_s, "rays_per_s": rays / pass_s, "peak_bytes": peak,
+           "transient_bytes": peak - before, "launches": launches}
+    print(f"15a BMW through the add-on ({tris} triangles, {len(asset.meshes)} meshes; Blender is "
+          f"not on this machine: the depsgraph is tools/blender_stub.py's, with loops and the uv "
+          f"layer): stub depsgraph {t_stub:.3f} s, export {t_export:.3f} s, geometry bit-equal to "
+          f"the asset's; PhosphorusRenderEngine.render {res}x{res} {BLENDER_SPP} spp depth "
+          f"{settings.max_depth} use_bvh={settings.use_bvh} ({n_pass} passes, Normal on) "
+          f"{secs:.3f} s in all; a pass {pass_s:.6f} s, {rays / pass_s / 1e6:.4f} Mrays/s; "
+          f"Renderer set-up {t_build:.3f} s (of the asset's scene, without corner attributes: "
+          f"{t_asset_build:.3f} s); peak {peak} bytes ({peak - before} above what was "
+          f"allocated before); Combined and Normal bit-equal to Renderer's last film; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {smi}", flush=True)
+    return out
+
+
+def quad_scene(pt, width, height):
+    """The JAX add-on test's stereo scene (tests/test_blender_engine.py
+    _depsgraph) as a port Scene: a diffuse quad at z = 0 under a sky,
+    the camera 4 back along +z."""
+    from phosphorus_mk2_tpu_torch.core.material import Material
+    from phosphorus_mk2_tpu_torch.scenes import make_quad
+
+    scene = pt.Scene()
+    scene.add_material(Material.diffuse((0.7, 0.7, 0.7), name="d"))
+    scene.add_mesh(make_quad([-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0], material="d",
+                             name="quad"))
+    scene.set_environment(Material.background((0.6, 0.7, 0.9), power=1.5))
+    to_world = np.eye(4, dtype=np.float32)
+    to_world[3, 2] = 4.0
+    scene.camera = pt.Camera(to_world=to_world, focal_length=35.0, sensor_width=36.0,
+                             width=width, height=height)
+    return scene
+
+
+def blender_quad(pt, dev, count, smi, width=64, height=48):
+    """15b: the two-view quad scene through the engine (the brute tracer:
+    2 triangles): each eye's passes against a Renderer on that eye's
+    camera, the eyes apart, and a test_break after the first pass. The
+    stereo render is counted."""
+    import copy
+
+    from phosphorus_mk2_tpu_torch.blender.exporter import export_scene
+    from phosphorus_mk2_tpu_torch.tools import blender_stub
+
+    settings = blender_stub.default_settings(samples_per_pixel=BLENDER_SPP, normal_pass=True)
+    dg = blender_stub.depsgraph_from_scene(quad_scene(pt, width, height), settings)
+    eng = engine_on(dev, ["left", "right"])
+    (_, secs, _), launches = count(lambda: timed(lambda: eng.render(dg)))
+    n_pass = BLENDER_SPP // settings.samples_per_pass
+    check(eng.updates == 2 * n_pass and eng.active_views == ["left", "right"]
+          and eng.progress == sorted(eng.progress) and eng.progress[-1] == 1.0,
+          f"quad engine: {eng.updates} updates, views {eng.active_views}, progress {eng.progress}")
+    exported = export_scene(dg, dg.scene)
+    for view in ("left", "right"):
+        eye = copy.deepcopy(exported)
+        m = np.array(dg.scene.camera.matrix_world, np.float32)
+        if view == "right":
+            m[0, 3] += eng.eye_offset
+        eye.camera.to_world = m.T.copy()
+        passes_vs_renderer(pt, eng, eye, settings, view, dev, f"quad engine, {view} eye")
+    check(not np.array_equal(eng.rect("Combined", "left"), eng.rect("Combined", "right")),
+          "quad engine: the two eyes are equal")
+
+    brk = engine_on(dev, ["left", "right"], break_after=2)  # polls: before pass 1, after it
+    brk.render(dg)
+    left = brk.result.layers[0].passes.find_by_name("Combined", "left").rect
+    check(brk.updates == 1 and left.writes == 1 and brk.ended
+          and brk.rect("Combined", "right") is None,
+          f"quad engine: test_break after the first pass left {brk.updates} updates")
+    print(f"15b the two-view quad through the add-on ({width}x{height}, {BLENDER_SPP} spp, depth "
+          f"{settings.max_depth}, use_bvh={settings.use_bvh}: the brute tracer): {secs:.3f} s "
+          f"for both eyes; each eye's Combined and Normal bit-equal to a Renderer on its camera, "
+          f"the eyes differ; test_break after the first pass: one pass written, the render "
+          f"returned; launches { {k: v for k, v in launches.items() if v} }; {smi}", flush=True)
+    return {"s": secs, "launches": launches}
+
+
+def blender_phase(pt, mt, front, wave, dev, smi):
+    """Phase 15: the Blender add-on (phosphorus_mk2_tpu_torch/blender/),
+    driven through tools/blender_stub.py since Blender is not on this
+    machine. Its main path is the engine renders of 15a and 15b's stereo
+    render, each counted from 0 just before and read just after; the
+    Renderer films they are held to and the test_break render are not
+    counted. Returns the launches."""
+    from phosphorus_mk2_tpu_torch.tools import blender_stub
+
+    t0 = time.perf_counter()
+    bpy = blender_stub.install()
+    check(bpy.types.RenderEngine is blender_stub.RenderEngine, "phase 15: another bpy is loaded")
+    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
+    count = launch_counter((mt, front, wave), totals)
+    res = {"bmw": blender_bmw(pt, dev, count, smi), "quad": blender_quad(pt, dev, count, smi)}
+    for part, kernels in (("bmw", ("front_full", "wave_mt", "wave_sweep")),
+                          ("quad", ("mt_closest", "mt_anyhit"))):
+        for k in kernels:
+            check(res[part]["launches"][k] > 0, f"phase 15: {k} was not launched ({part})")
+    res["launches_counted"] = totals
+    res["device"] = smi
+    res["s"] = time.perf_counter() - t0
+    print(json.dumps({"blender": res}, default=str), flush=True)
+    print(f"phase 15: {res['s']:.1f} s; {smi}", flush=True)
+    return totals
+
+
+
 def run(profile: bool, upto: int, only_tunables: bool = False, only_options: bool = False,
-        only_shading: bool = False) -> int:
+        only_shading: bool = False, only_blender: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -4345,6 +4574,10 @@ def run(profile: bool, upto: int, only_tunables: bool = False, only_options: boo
 
         shading_phase(pt, ct, mt, front, wave, bench, scenes, terrain, terrain_data, dev, smi,
                       profile)
+        return 0
+    if only_blender:
+        phase("15 the Blender add-on (alone)")
+        blender_phase(pt, mt, front, wave, dev, smi)
         return 0
     if upto < 4:
         return 0
@@ -4415,11 +4648,16 @@ def run(profile: bool, upto: int, only_tunables: bool = False, only_options: boo
     phase("14 the un-consolidated shading path")
     shading_launches = shading_phase(pt, ct, mt, front, wave, bench, scenes, terrain,
                                      terrain_data, dev, smi, profile)
+    if upto < 15:
+        return 0
+
+    phase("15 the Blender add-on")
+    blender_launches = blender_phase(pt, mt, front, wave, dev, smi)
     for row in rows:  # the kernels line counts the main path of every phase
         row["launches"] += (grad_launches[row["name"]] + io_launches[row["name"]]
                             + entry_launches[row["name"]] + oracle_launches[row["name"]]
                             + tune_launches[row["name"]] + option_launches[row["name"]]
-                            + shading_launches[row["name"]])
+                            + shading_launches[row["name"]] + blender_launches[row["name"]])
         if row["max_abs_err"] is None:  # a new instance: its parity is phase 12's
             row["max_abs_err"] = tune_errs[row["name"]]
     names = [row["name"] for row in rows]
@@ -4443,7 +4681,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one pass of each main-path render with torch.profiler")
-    ap.add_argument("--upto", type=int, default=14, metavar="PHASE",
+    ap.add_argument("--upto", type=int, default=15, metavar="PHASE",
                     help="stop after this phase (2 or 3: build and parity only, for a "
                          "first look at a new kernel); prints no result line")
     ap.add_argument("--only-tunables", action="store_true",
@@ -4452,6 +4690,8 @@ def main() -> int:
                     help="phases 1-3, then phase 13 alone (no result line)")
     ap.add_argument("--only-shading", action="store_true",
                     help="phases 1-3, then phase 14 alone (no result line)")
+    ap.add_argument("--only-blender", action="store_true",
+                    help="phases 1-3, then phase 15 alone (no result line)")
     ap.add_argument("--sweep-timing", action="store_true",
                     help="only time wave_sweep at phase 7's shapes and print one JSON line "
                          "(no result line)")
@@ -4470,12 +4710,12 @@ def main() -> int:
         return sweep_timing_only([int(x) for x in args.m.split(",") if x])
     try:
         rc = run(args.profile, args.upto, args.only_tunables, args.only_options,
-                 args.only_shading)
+                 args.only_shading, args.only_blender)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if rc == 0 and (args.upto < 14 or args.only_tunables or args.only_options
-                    or args.only_shading):
+    if rc == 0 and (args.upto < 15 or args.only_tunables or args.only_options
+                    or args.only_shading or args.only_blender):
         print(f"chip_smoke: stopped after phase {args.upto}; no result", file=sys.stderr)
     return rc
 

@@ -13,7 +13,7 @@ import phosphorus_mk2_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "phosphorus_mk2_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "phosphorus_mk2_tpu")
+FORBIDDEN = ("jax", "jaxlib", "phosphorus_mk2_tpu", "phosphorus_tpu")  # the last: the JAX add-on
 
 
 def _forbidden(name: str) -> bool:
@@ -89,7 +89,8 @@ def test_the_new_modules_are_walked():
                  "accel.front", "accel.build", "accel.wave", "tools.row_gather_probe",
                  "io.ogawa", "io.abc", "io.alembic", "io.obj", "io.ply", "io.exr",
                  "io.yaml_scene", "parallel.distributed", "parallel.sharding",
-                 "tools.bmw_asset", "tools.rank_parity"):
+                 "tools.bmw_asset", "tools.rank_parity", "blender", "blender.exporter",
+                 "blender.properties", "blender.engine", "blender.ui", "tools.blender_stub"):
         assert f"phosphorus_mk2_tpu_torch.{name}" in mods, name
     sources = {p.name for p in (PACKAGE / "csrc").iterdir()}
     assert {"mt.cu", "front.cu", "wave.cu", "bvh_builder.cpp"} <= sources
