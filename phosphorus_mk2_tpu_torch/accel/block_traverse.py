@@ -28,11 +28,12 @@ import torch
 from phosphorus_mk2_tpu_torch.accel.bvh_builder import MAX_LEAF
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, mt_intersect_soa
 from phosphorus_mk2_tpu_torch.accel.traverse import first_nearest, pop, push_children
+from phosphorus_mk2_tpu_torch.utils.profiling import counted
 
 BLOCK = 256
 STACK_DEPTH = 192
 
-STATS = {"traces": 0, "steps": 0, "syncs": 0}
+STATS = counted("accel.block_traverse.STATS", {"traces": 0, "steps": 0, "syncs": 0})
 
 
 def _leaf_step(leaf, group, count, is_leaf, ray, best_t):

@@ -4,16 +4,21 @@ The libraries go into ``build/torch_kernels/`` at the root of the
 checkout, named by a hash of the source and the flags, so a changed
 source or flag builds anew and an unchanged one is loaded as it is.
 Nothing here swallows a failure: a missing compiler or a compiler error
-raises ``RuntimeError`` with the compiler's output.
+raises ``RuntimeError`` with the compiler's output. Each build counts in
+``utils.profiling.COUNTERS["kernels.builds"]``, and each library's
+first-use load (``load_shared``) is a ``setup.kernels`` span.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from phosphorus_mk2_tpu_torch.utils.profiling import COUNTERS, span
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -55,4 +60,16 @@ def compile_shared(source: Path, compiler: str, flags: tuple, stem: str):
         os.unlink(tmp)
         raise RuntimeError(f"{compiler} failed ({res.returncode}) on {source.name}:\n{log}")
     os.replace(tmp, out)
+    COUNTERS["kernels.builds"] += 1
     return out, log
+
+
+def load_shared(source: Path, compiler: str, flags: tuple, stem: str):
+    """``compile_shared``, then the library loaded through ctypes, inside
+    one ``setup.kernels`` span whose args hold the library's stem and
+    whether it was built. Returns (the library, the compiler's output)."""
+    with span("setup.kernels", {"lib": stem}) as sp:
+        builds = COUNTERS["kernels.builds"]
+        out, log = compile_shared(source, compiler, flags, stem)
+        sp.args["built"] = COUNTERS["kernels.builds"] > builds
+        return ctypes.CDLL(str(out)), log

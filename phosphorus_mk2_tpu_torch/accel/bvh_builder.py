@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from phosphorus_mk2_tpu_torch.accel import native_bvh
+from phosphorus_mk2_tpu_torch.utils.profiling import spanned
 
 log = logging.getLogger(__name__)
 
@@ -332,6 +333,7 @@ def cluster_rows(a, e0, e1):
     return np.ascontiguousarray(np.concatenate([a, e0, e1], axis=2).transpose(0, 2, 1))
 
 
+@spanned("setup.bvh")
 def attach_bvh(scene_data, bvh: dict | None = None,
                cluster_mode: str = "treelet",
                cluster_tris: int | None = None,

@@ -59,6 +59,7 @@ from phosphorus_mk2_tpu_torch.accel.bvh_builder import SUPER_CLUSTERS as SC
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, mt_intersect
 from phosphorus_mk2_tpu_torch.accel.wave import dedup_rows as _dedup_rows  # noqa: F401
 from phosphorus_mk2_tpu_torch.accel.wave import mt_rows as _mt_rows  # noqa: F401  (its old home)
+from phosphorus_mk2_tpu_torch.utils.profiling import counted
 
 MAX_FRONT = 32  # per-ray front-to-back cluster table depth; rays that
                 # overlap more clusters finish in the exact fallback
@@ -66,7 +67,8 @@ SC_FRONT = 16   # supercluster table depth in hierarchical mode
 
 # traces, rays, waves, host syncs and exact-fallback rays since the caller
 # last cleared it (a profile reads it; nothing in the tracer does)
-STATS = {"traces": 0, "syncs": 0, "waves": 0, "fallback_rays": 0, "rays": 0}
+STATS = counted("accel.cluster_traverse.STATS",
+                {"traces": 0, "syncs": 0, "waves": 0, "fallback_rays": 0, "rays": 0})
 
 WAVE_DEDUP = ("off", "gather", "onehot")
 

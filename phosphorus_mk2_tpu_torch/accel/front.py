@@ -50,8 +50,9 @@ import struct
 
 import torch
 
-from phosphorus_mk2_tpu_torch.accel.build import CSRC, NVCC_FLAGS, compile_shared, find_nvcc
+from phosphorus_mk2_tpu_torch.accel.build import CSRC, NVCC_FLAGS, find_nvcc, load_shared
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX
+from phosphorus_mk2_tpu_torch.utils.profiling import counted
 
 RAY_CHUNK = 16384    # rays per step of the plain versions (bounds their temporaries)
 DEAD_KEY = 0x7FFFFFFF
@@ -60,7 +61,7 @@ MAX_SHARED = 232448
 _WARPS = 8           # csrc/front.cu WARPS
 _T_MAX_BITS = struct.unpack("<i", struct.pack("<f", T_MAX))[0]  # of float32(3.4e38)
 
-LAUNCHES = {"front_full": 0, "front_slab_extract": 0}
+LAUNCHES = counted("accel.front.LAUNCHES", {"front_full": 0, "front_slab_extract": 0})
 
 _lib = None
 build_log = ""  # nvcc's output (ptxas register and shared-memory report)
@@ -71,8 +72,7 @@ def build() -> ctypes.CDLL:
     global _lib, build_log
     if _lib is not None:
         return _lib
-    out, build_log = compile_shared(CSRC / "front.cu", find_nvcc(), NVCC_FLAGS, "front")
-    lib = ctypes.CDLL(str(out))
+    lib, build_log = load_shared(CSRC / "front.cu", find_nvcc(), NVCC_FLAGS, "front")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.front_full_launch.argtypes = [vp] * 7 + [i32] * 7 + [vp, vp, vp]
     lib.front_full_launch.restype = i32

@@ -35,10 +35,11 @@ from phosphorus_mk2_tpu_torch.accel.build import (
     BUILD_DIR,  # noqa: F401  (named by callers that report where the build went)
     CSRC,
     NVCC_FLAGS,
-    compile_shared,
     find_nvcc,
+    load_shared,
 )
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, mt_intersect_soa, ray_soa
+from phosphorus_mk2_tpu_torch.utils.profiling import counted
 
 TRI_TILE = 512       # the table's column padding (the Pallas kernels' chunk)
 RAY_CHUNK = 8192     # rays per step of the plain versions (bounds their (N, C) temporaries)
@@ -53,7 +54,7 @@ WAVES = 4            # waves of resident blocks the closest grid aims at
 ANYHIT_TILE = 128    # csrc/mt.cu's AT: the columns mt_anyhit stages at a time
 NO_HIT = (1 << 63) - 1  # the plain merge's key of a miss (the kernel's is all ones)
 
-LAUNCHES = {"mt_closest": 0, "mt_anyhit": 0}
+LAUNCHES = counted("accel.mt.LAUNCHES", {"mt_closest": 0, "mt_anyhit": 0})
 
 _lib = None
 _resident = {}   # device index -> (SMs, mt_closest blocks resident on an SM)
@@ -65,8 +66,7 @@ def build() -> ctypes.CDLL:
     global _lib, build_log
     if _lib is not None:
         return _lib
-    out, build_log = compile_shared(CSRC / "mt.cu", find_nvcc(), NVCC_FLAGS, "mt")
-    lib = ctypes.CDLL(str(out))
+    lib, build_log = load_shared(CSRC / "mt.cu", find_nvcc(), NVCC_FLAGS, "mt")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mt_closest_blocks_per_sm.argtypes = [vp]
     lib.mt_closest_launch.argtypes = [vp, i32, i32, vp, vp, i32, i32, i32, vp, vp, vp, vp, vp,

@@ -15,7 +15,7 @@ import threading
 
 import numpy as np
 
-from phosphorus_mk2_tpu_torch.accel.build import CSRC, compile_shared
+from phosphorus_mk2_tpu_torch.accel.build import CSRC, load_shared
 
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
@@ -38,8 +38,7 @@ def build() -> ctypes.CDLL:
         gxx = compiler()
         if gxx is None:
             raise RuntimeError("g++ not found: the native BVH builder cannot be built")
-        out, _ = compile_shared(CSRC / "bvh_builder.cpp", gxx, GXX_FLAGS, "phbvh")
-        lib = ctypes.CDLL(str(out))
+        lib, _ = load_shared(CSRC / "bvh_builder.cpp", gxx, GXX_FLAGS, "phbvh")
         f32p = ctypes.POINTER(ctypes.c_float)
         i32p = ctypes.POINTER(ctypes.c_int32)
         i64p = ctypes.POINTER(ctypes.c_int64)

@@ -33,10 +33,11 @@ import torch
 
 from phosphorus_mk2_tpu_torch.accel.bvh_builder import MAX_LEAF
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, mt_intersect_soa
+from phosphorus_mk2_tpu_torch.utils.profiling import counted
 
 STACK_DEPTH = 96
 
-STATS = {"traces": 0, "steps": 0, "syncs": 0}
+STATS = counted("accel.traverse.STATS", {"traces": 0, "steps": 0, "syncs": 0})
 
 
 def _tri_data(scene):

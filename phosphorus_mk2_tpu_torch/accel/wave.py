@@ -86,8 +86,9 @@ import ctypes
 
 import torch
 
-from phosphorus_mk2_tpu_torch.accel.build import CSRC, NVCC_FLAGS, compile_shared, find_nvcc
+from phosphorus_mk2_tpu_torch.accel.build import CSRC, NVCC_FLAGS, find_nvcc, load_shared
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX
+from phosphorus_mk2_tpu_torch.utils.profiling import counted
 
 ROW_C = 128          # triangles of a cluster row (csrc/wave.cu C)
 WAVE_CHUNK = 1 << 17  # rays per step of wave_mt_plain unless the caller says
@@ -106,8 +107,9 @@ SWEEP_MIN_ROWS = 2   # rows a warp (a block, rows staged) takes at least, on ave
 NO_KEY = (1 << 63) - 1  # wave_sweep_plain's key of a ray without a hit
 DEAD_CLUSTER = (1 << 31) - 1  # dedup_order's cluster of a dead ray: past every id
 
-LAUNCHES = {"row_gather": 0, "wave_mt": 0, "wave_mt_bf16": 0, "wave_mt_ordered": 0,
-            "wave_mt_bf16_ordered": 0, "wave_sweep": 0, "wave_sweep_bf16": 0}
+LAUNCHES = counted("accel.wave.LAUNCHES",
+                   {"row_gather": 0, "wave_mt": 0, "wave_mt_bf16": 0, "wave_mt_ordered": 0,
+                    "wave_mt_bf16_ordered": 0, "wave_sweep": 0, "wave_sweep_bf16": 0})
 ROW_TYPES = (torch.float32, torch.bfloat16)  # what wave_mt and wave_sweep take
 
 _lib = None
@@ -121,8 +123,7 @@ def build() -> ctypes.CDLL:
     global _lib, build_log
     if _lib is not None:
         return _lib
-    out, build_log = compile_shared(CSRC / "wave.cu", find_nvcc(), NVCC_FLAGS, "wave")
-    lib = ctypes.CDLL(str(out))
+    lib, build_log = load_shared(CSRC / "wave.cu", find_nvcc(), NVCC_FLAGS, "wave")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.row_gather_launch.argtypes = [vp, vp, i32, vp, i32, vp]
     lib.wave_mt_blocks_per_sm.argtypes = [i32, vp]

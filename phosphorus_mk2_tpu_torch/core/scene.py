@@ -20,6 +20,7 @@ from phosphorus_mk2_tpu_torch.core.material import Material, pack_materials
 from phosphorus_mk2_tpu_torch.core.mesh import Mesh
 from phosphorus_mk2_tpu_torch.core.texture import Texture, pack_textures
 from phosphorus_mk2_tpu_torch.device import resolve_device
+from phosphorus_mk2_tpu_torch.utils.profiling import spanned
 
 LIGHT_POINT = 0
 LIGHT_AREA = 1
@@ -173,6 +174,7 @@ class Scene:
             return np.full((mesh.num_faces,), int(mat), np.int32)
         return np.ascontiguousarray(mat, np.int32)
 
+    @spanned("setup.scene_build")
     def build(self, device="cuda") -> SceneData:
         """Flatten to the device representation on ``device``, creating
         area lights from emissive face sets (reference src/mesh.cpp:108-116)."""

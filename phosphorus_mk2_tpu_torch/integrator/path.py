@@ -87,6 +87,7 @@ from phosphorus_mk2_tpu_torch.math.vec import (
     normalize,
     offset,
 )
+from phosphorus_mk2_tpu_torch.utils import profiling
 
 # above this many triangles a scene with a BVH takes the cluster tracer
 BRUTE_MAX_TRIS = 1024
@@ -413,6 +414,13 @@ def trace_sample(
 
     def bounce(b: int, s: dict) -> dict:
         """Bounce b on the carry s; returns the next carry."""
+        with profiling.stages() as stage:
+            return bounce_stages(b, s, stage)
+
+    def bounce_stages(b: int, s: dict, stage) -> dict:
+        """bounce's body; ``stage(name)`` closes the last stage's span and
+        opens the next (a no-op when tracing is off)."""
+        stage("integrator.trace")
         p, d, beta, radiance, alive = s["p"], s["d"], s["beta"], s["radiance"], s["alive"]
         spec, pdf_prev, plen, pend = s["spec"], s["pdf_prev"], s["plen"], s["pend"]
         # the primal trace; dead lanes trace with tmax ~ 0
@@ -432,6 +440,7 @@ def trace_sample(
             radiance = radiance + torch.where(
                 (pend["valid"] & ~occ_prev)[..., None], pend["contrib"], 0.0
             )
+        stage("integrator.hit_rows")
         tri = hits["tri"]
         hit = hits["hit"] & alive
         safe_tri = torch.clamp(tri, min=0).long()
@@ -479,6 +488,7 @@ def trace_sample(
                                    sp["st"], footprint=fp)
 
         # 1. emission at first/specular vertices; env on miss
+        stage("integrator.emission")
         emit_mask = hit if b == 0 else hit & spec
         radiance = radiance + torch.where(emit_mask[..., None], beta * e_hit, 0.0)
         if mis:
@@ -518,6 +528,7 @@ def trace_sample(
 
         # 2. next-event estimation
         if nee_enabled:
+            stage("integrator.nee")
             ls = sample_lights(
                 scene, u_light[:, 0], u_light[:, 1], u_light[:, 2], attr=attr,
                 meta=tables["light"], lt_table=tables.get("light_tri"),
@@ -532,11 +543,6 @@ def trace_sample(
             # a NaN distance gives a NaN wi, so such a lane is never valid
             # and its tmax is 0: a miss for closest and occluded alike
             valid = hit & (dot(hn, wi) > 0.0) & ls["valid"]
-            if not pipe:
-                with torch.no_grad():
-                    occ = occluded(p_off.detach(), wi.detach(),
-                                   torch.where(valid, dist, 0.0).detach())
-
             f = bsdf_f(lobes, hn, wi, wo_view)
             if "e" in ls:  # the emission came in the light-triangle row
                 light_e = emission_from_row(scene, ls["e"], ls["etex"], ls["st"])
@@ -563,10 +569,16 @@ def trace_sample(
                     "valid": valid,
                 }
             else:
+                # the any-hit trace after the NEE terms, which do not read it
+                stage("integrator.shadow")
+                with torch.no_grad():
+                    occ = occluded(p_off.detach(), wi.detach(),
+                                   torch.where(valid, dist, 0.0).detach())
                 use = valid & ~occ
                 radiance = radiance + torch.where(use[..., None], beta * li, 0.0)
 
         # 3. Russian roulette + termination (reference terminate_path)
+        stage("integrator.bsdf_sample")
         depth_after = b + 1
         alive_next = hit & (depth_after < max_depth)
         q = maximum(1.0 - luminance(beta.detach()), 0.05)
@@ -632,11 +644,13 @@ def trace_sample(
     radiance, pend = state["radiance"], state["pend"]
     if pend is not None:
         # the trailing resolve: the last bounce's shadow rays
-        with torch.no_grad():
-            occ = occluded(pend["p"].detach(), pend["d"].detach(), pend["tmax"].detach())
-        radiance = radiance + torch.where(
-            (pend["valid"] & ~occ)[..., None], pend["contrib"], 0.0
-        )
+        with profiling.span("integrator.shadow"):
+            with torch.no_grad():
+                occ = occluded(pend["p"].detach(), pend["d"].detach(),
+                               pend["tmax"].detach())
+            radiance = radiance + torch.where(
+                (pend["valid"] & ~occ)[..., None], pend["contrib"], 0.0
+            )
     return radiance, state["aov_normal"], state["aov_alpha"]
 
 
@@ -670,26 +684,28 @@ def render_pass_pixels(scene, cam_params, seed: int, sample_offset: int,
     else:
         pxb, pyb = px, py
     scene = scope_scene(scene, trainable)  # cut non-trainable gradients
-    tables = make_scene_tables(scene)  # once per pass, shared by samples
+    with profiling.span("integrator.tables"):
+        tables = make_scene_tables(scene)  # once per pass, shared by samples
     tracer = tracer_for(tracer, scene)
     c = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     nrm = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     a = torch.zeros((n,), dtype=torch.float32, device=dev)
     for s in range(n_samples // sb):
         sidx = sample_offset + s * sb + sub if sb > 1 else sample_offset + s
-        r, sn, sa = trace_sample(
-            scene, cam_params, pxb, pyb, sidx, seed,
-            max_depth=max_depth, tracer=tracer, film_strata=film_strata,
-            mis=mis, tables=tables, remat=remat, sorted_dispatch=sorted_dispatch,
-            pipeline_shadow=pipeline_shadow, aniso_taps=aniso_taps, trainable=trainable,
-        )
-        if sb > 1:
-            r = r.reshape(sb, n, 3).sum(0)
-            sn = sn.reshape(sb, n, 3).sum(0)
-            sa = sa.reshape(sb, n).sum(0)
-        c = c + r
-        nrm = nrm + sn
-        a = a + sa
+        with profiling.span("integrator.sample"):
+            r, sn, sa = trace_sample(
+                scene, cam_params, pxb, pyb, sidx, seed,
+                max_depth=max_depth, tracer=tracer, film_strata=film_strata,
+                mis=mis, tables=tables, remat=remat, sorted_dispatch=sorted_dispatch,
+                pipeline_shadow=pipeline_shadow, aniso_taps=aniso_taps, trainable=trainable,
+            )
+            if sb > 1:
+                r = r.reshape(sb, n, 3).sum(0)
+                sn = sn.reshape(sb, n, 3).sum(0)
+                sa = sa.reshape(sb, n).sum(0)
+            c = c + r
+            nrm = nrm + sn
+            a = a + sa
     return {"color": c, "normal": nrm, "alpha": a}
 
 

@@ -39,6 +39,7 @@ from phosphorus_mk2_tpu_torch.parallel.sharding import (
     make_wave_mesh,
     split_frame,
 )
+from phosphorus_mk2_tpu_torch.utils.profiling import span, spanned
 
 TRAINABLE_FIELDS = ("emission", "lobe_weight", "lobe_param", "vertices", "normals")
 
@@ -51,6 +52,7 @@ class InverseRenderer:
     gradient over the path integral).
     """
 
+    @spanned("setup.session")
     def __init__(
         self,
         scene,
@@ -138,10 +140,11 @@ class InverseRenderer:
         if self._log_emission:
             params["emission"] = torch.log(maximum(params["emission"], 1e-6))
         self.params = {k: params[k].requires_grad_() for k in sorted(params)}
-        if optimizer is None:
-            self.opt = torch.optim.Adam(list(self.params.values()), lr=learning_rate)
-        else:
-            self.opt = optimizer(list(self.params.values()))
+        with span("setup.optimizer"):
+            if optimizer is None:
+                self.opt = torch.optim.Adam(list(self.params.values()), lr=learning_rate)
+            else:
+                self.opt = optimizer(list(self.params.values()))
         self.key = rng.key_data(seed)
         self._step_count = 0
         self._unbiased = bool(unbiased_loss)
@@ -177,6 +180,7 @@ class InverseRenderer:
             total = total + p.to(self.device)
         return total / self._n_valid
 
+    @spanned("optim.step")
     def step(self) -> float:
         if self._fresh_rng:
             self.key, sub = rng.split(self.key)
@@ -184,13 +188,18 @@ class InverseRenderer:
             sub = self.key
         view = self._step_count % self._n_views
         self.opt.zero_grad(set_to_none=True)
-        loss = self._loss(sub, view)
-        loss.backward()
-        if rank_and_world()[1] > 1:  # each rank's loss covers its own pixels
-            value, = all_reduce_grads(list(self.params.values()), loss)
-        else:
-            value = float(loss.detach())
-        self.opt.step()
+        with span("optim.forward"):
+            loss = self._loss(sub, view)
+        with span("optim.backward"):
+            loss.backward()
+        # where the step waits for the card
+        with span("optim.loss_readback"):
+            if rank_and_world()[1] > 1:  # each rank's loss covers its own pixels
+                value, = all_reduce_grads(list(self.params.values()), loss)
+            else:
+                value = float(loss.detach())
+        with span("optim.update"):
+            self.opt.step()
         self._step_count += 1
         return value
 

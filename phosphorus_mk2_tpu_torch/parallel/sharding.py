@@ -39,6 +39,7 @@ from phosphorus_mk2_tpu_torch.parallel.distributed import (
     local_rank,
     rank_and_world,
 )
+from phosphorus_mk2_tpu_torch.utils.profiling import spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +214,7 @@ class ShardedRender:
         return out
 
 
+@spanned("setup.tracer")
 def make_sharded_render(
     mesh: DeviceMesh,
     data,

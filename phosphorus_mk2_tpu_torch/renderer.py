@@ -43,9 +43,11 @@ from phosphorus_mk2_tpu_torch.parallel.sharding import (
     split_frame,
 )
 from phosphorus_mk2_tpu_torch.utils.log import Metrics, get_logger
+from phosphorus_mk2_tpu_torch.utils.profiling import span, spanned
 
 
 class Renderer:
+    @spanned("setup.session")
     def __init__(self, scene: Scene, options: Options | None = None,
                  n_devices=None, mesh=None, device="cuda"):
         """n_devices: devices of the default 1-D wave mesh (all the cards,
@@ -91,8 +93,10 @@ class Renderer:
             if s0 and cancel is not None and cancel():
                 return None
             s1 = min(s0 + chunk, per)
-            pieces.append(self.fn(self.data, self.options.seed, done, todo,
-                                  [p[s0:s1] for p in self.px], [p[s0:s1] for p in self.py]))
+            with span("renderer.chunk"):
+                pieces.append(self.fn(self.data, self.options.seed, done, todo,
+                                      [p[s0:s1] for p in self.px],
+                                      [p[s0:s1] for p in self.py]))
         if len(pieces) == 1:
             return pieces[0]
         return [{k: torch.cat([p[i][k] for p in pieces]) for k in pieces[0][i]}
@@ -120,18 +124,23 @@ class Renderer:
             if cancel is not None and cancel():
                 return
             todo = min(per_pass, spp - done)
-            out = self._pass(done, todo, cancel)
-            if out is None:
-                return
-            sums = out if sums is None else [{k: s[k] + o[k] for k in s}
-                                             for s, o in zip(sums, out)]
-            done += todo
-            pass_idx += 1
-            if (opts.checkpoint_dir and opts.checkpoint_every
-                    and pass_idx % opts.checkpoint_every == 0):
-                self._save_checkpoint(sums, done)
-            yield gather_film(sums, self.scene.camera.width,
-                              self.scene.camera.height, done), done
+            # the pass's span closes before the yield: the caller's work
+            # on the film is not the pass's
+            with span("renderer.pass"):
+                out = self._pass(done, todo, cancel)
+                if out is None:
+                    return
+                sums = out if sums is None else [{k: s[k] + o[k] for k in s}
+                                                 for s, o in zip(sums, out)]
+                done += todo
+                pass_idx += 1
+                if (opts.checkpoint_dir and opts.checkpoint_every
+                        and pass_idx % opts.checkpoint_every == 0):
+                    self._save_checkpoint(sums, done)
+                with span("renderer.film_gather"):
+                    film = gather_film(sums, self.scene.camera.width,
+                                       self.scene.camera.height, done)
+            yield film, done
         if opts.checkpoint_dir and opts.checkpoint_every:
             self._save_checkpoint(sums, done)
 

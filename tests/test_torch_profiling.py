@@ -1,11 +1,9 @@
 """The port's utils/profiling.py against the JAX package's on the same
-calls: StageTimer's stages, counts and report, RenderMeter's arithmetic,
-and trace() writing a Chrome trace on the CPU.
+calls: StageTimer's stages, counts and report, and trace() writing a
+Chrome trace on the CPU (tests/test_torch_spans.py holds the spans).
 
-Tolerances: RenderMeter's rays are integers and its rate the same
-float division, so both compare exactly. StageTimer's totals are
-wall-clock times of two different runs: only their order and the
-report's format are compared.
+Tolerances: StageTimer's totals are wall-clock times of two different
+runs: only their order and the report's format are compared.
 """
 import json
 import os
@@ -59,17 +57,6 @@ def test_stage_timer_counts_a_raising_stage():
         with t.stage("bad", sync=torch.ones(1)):
             raise ValueError
     assert t.counts == {"bad": 1}
-
-
-@pytest.mark.parametrize("passes", [[(4, 0.5)], [(4, 0.5), (2, 0.25), (1, 1e-3)], []])
-def test_render_meter_matches_jax(passes):
-    jm, tm = jprof.RenderMeter(24, 16, 5), tprof.RenderMeter(24, 16, 5)
-    for n, s in passes:
-        jm.add_pass(n, s)
-        tm.add_pass(n, s)
-    assert tm.per_sample_rays == jm.per_sample_rays == 24 * 16 * 5 * 2
-    assert tm.rays == jm.rays and tm.seconds == jm.seconds
-    assert tm.rays_per_sec == jm.rays_per_sec
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):

@@ -37,6 +37,9 @@ NO_COUNTERPART = {
 # public names deliberately absent from the port
 ABSENT = {
     ("math/vec.py", "jax_rsqrt"): "lax.rsqrt; torch.rsqrt is its torch form (vec.normalize)",
+    ("utils/profiling.py", "RenderMeter"):
+        "nominal rays (N x depth x 2, whatever the paths do) that nothing calls; the "
+        "port's spans time a pass and its stages (utils/profiling.py span)",
     ("parallel/distributed.py", "wave_spec"):
         "a jax PartitionSpec; torch has none, parallel/sharding.DeviceMesh splits the wavefront",
     ("parallel/distributed.py", "wave_sharding"):
