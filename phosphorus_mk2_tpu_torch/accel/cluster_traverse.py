@@ -47,6 +47,12 @@ per recompaction for the width and one for the indices of the fallback's
 rays. The plain wave adds one per wave (the indices of the live rays);
 the kernel needs none.
 
+While a torch.profiler session is active a trace is the span
+``tracer.trace`` (utils/profiling.py; args: the kind, closest or
+any_hit, and the rays) and its three stages the spans ``tracer.front``,
+``tracer.waves`` (the wave loop with its syncs) and ``tracer.fallback``;
+otherwise each is the shared no-op.
+
 Correctness oracle: the brute-force tracer of accel/mt.py.
 """
 from __future__ import annotations
@@ -59,7 +65,7 @@ from phosphorus_mk2_tpu_torch.accel.bvh_builder import SUPER_CLUSTERS as SC
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX, mt_intersect
 from phosphorus_mk2_tpu_torch.accel.wave import dedup_rows as _dedup_rows  # noqa: F401
 from phosphorus_mk2_tpu_torch.accel.wave import mt_rows as _mt_rows  # noqa: F401  (its old home)
-from phosphorus_mk2_tpu_torch.utils.profiling import counted
+from phosphorus_mk2_tpu_torch.utils.profiling import counted, span, tracing
 
 MAX_FRONT = 32  # per-ray front-to-back cluster table depth; rays that
                 # overlap more clusters finish in the exact fallback
@@ -341,112 +347,121 @@ def _trace(scene, p, d, t_limit, any_hit,
     """
     if wave_dedup not in WAVE_DEDUP:
         raise ValueError(f"wave_dedup must be one of {WAVE_DEDUP}, got {wave_dedup!r}")
-    bvh = scene.bvh
-    rows_tbl = _cluster_rows(scene, bf16=rows_bf16)
-    K = rows_tbl.shape[0]
     n = p.shape[0]
-    dev = p.device
-    pp = p.detach().contiguous()
-    dd = d.detach().contiguous()
-    t_limit = t_limit.detach().contiguous()
-    STATS["traces"] += 1
-    STATS["rays"] += n
+    args = {"kind": "any_hit" if any_hit else "closest", "rays": n} if tracing() else None
+    with span("tracer.trace", args):
+        bvh = scene.bvh
+        rows_tbl = _cluster_rows(scene, bf16=rows_bf16)
+        K = rows_tbl.shape[0]
+        dev = p.device
+        pp = p.detach().contiguous()
+        dd = d.detach().contiguous()
+        t_limit = t_limit.detach().contiguous()
+        STATS["traces"] += 1
+        STATS["rays"] += n
 
-    best_t = t_limit.clone()
-    best_c = torch.full((n,), -1, dtype=torch.int32, device=dev)   # -1 = miss
-    best_l = torch.zeros((n,), dtype=torch.int32, device=dev)
-    if n == 0:
+        best_t = t_limit.clone()
+        best_c = torch.full((n,), -1, dtype=torch.int32, device=dev)   # -1 = miss
+        best_l = torch.zeros((n,), dtype=torch.int32, device=dev)
+        if n == 0:
+            return best_t, best_c, best_l
+
+        with span("tracer.front"):
+            kk = min(front_k or MAX_FRONT, K)
+            if K > (dense_k or DENSE_K) and "sc_bmin" in bvh:
+                ttbl, ctbl, sc_horizon = _front_table_hierarchical(
+                    pp, dd, bvh, t_limit, kk, expand_batch=expand_batch,
+                    levels=front_levels or 2, sc_topk=sc_topk, sc_front=sc_front,
+                    slab_bf16=slab_bf16, plain=plain,
+                )
+                kth_tn = torch.minimum(ttbl[:, -1], sc_horizon)  # per-ray covered horizon
+            else:
+                ttbl, ctbl, _ = _front_table_dense(pp, dd, bvh, t_limit, kk,
+                                                   slab_bf16=slab_bf16)
+                kth_tn = ttbl[:, -1]
+
+        # the kernels of accel/wave.py for CUDA tensors, their plain versions
+        # for CPU tensors or when the caller asks for them
+        use_plain = plain or not pp.is_cuda
+        state = (best_t, best_c, best_l)  # updated in place from here on
+
+        def mt_step(col_t, col_c, step, dedup=False):
+            """Front-table columns col_t / col_c (n, w) for every ray: the
+            live entries are tested against the ray's best t at the call. The
+            plain version compacts the live rays by index, ``step`` at a time,
+            which is a host sync; the kernel gates each ray itself. dedup (one
+            column): wave_dedup's rows, or on the card its ray order."""
+            if use_plain:
+                wave.wave_mt_plain(pp, dd, rows_tbl, col_t, col_c, any_hit, *state,
+                                   chunk=step, dedup=(wave_dedup, dedup_d) if dedup else None)
+                STATS["syncs"] += 1
+            elif dedup:
+                live = wave.live_columns(col_t[:, 0], best_t, best_c, any_hit)
+                order = wave.dedup_order(col_c[:, 0], live)
+                wave.wave_mt(pp, dd, rows_tbl, col_t, col_c, any_hit, *state, order=order)
+            else:
+                wave.wave_mt(pp, dd, rows_tbl, col_t, col_c, any_hit, *state)
+
+        with span("tracer.waves"):
+            # --- dense head: columns [0, W0) of every ray in one step
+            W0 = min(dense_waves, kk) if dense_waves else 0
+            if W0 > 0:
+                mt_step(ttbl[:, :W0], ctbl[:, :W0], dense_chunk)
+
+            def run_waves(tbl_t, tbl_c, w0, ncols):
+                """Columns [w0, ncols) of a table whose pending entries are
+                left-packed, one wave each: stops at the deepest column any ray
+                has."""
+                if w0 >= ncols:
+                    return
+                depth = int((tbl_t[:, w0:ncols] < T_MAX).sum(dim=1).max())
+                STATS["syncs"] += 1
+                for w in range(w0, w0 + depth):
+                    mt_step(tbl_t[:, w : w + 1], tbl_c[:, w : w + 1], chunk,
+                            dedup=wave_dedup != "off")
+                    STATS["waves"] += 1
+
+            if recompact and 0 < recompact < kk - W0:
+                seg = min(W0 + recompact, kk)
+                run_waves(ttbl, ctbl, W0, seg)
+                tbl_t, tbl_c = ttbl[:, seg:], ctbl[:, seg:]
+                nbits = front.key_bits(K)
+                while tbl_t.shape[1] > 0:
+                    live = wave.live_columns(tbl_t, best_t, best_c, any_hit)
+                    width = int(live.sum(dim=1).max())
+                    STATS["syncs"] += 1
+                    if width == 0:
+                        break
+                    # the cluster id rides in the tn mantissa: truncation only
+                    # LOWERS tn (keys clamped non-negative), permissive for the
+                    # live gate; the MT stays exact
+                    packed = torch.where(
+                        live, front.pack_keys(front.clamp0(tbl_t), nbits, tbl_c),
+                        front.DEAD_KEY,
+                    )
+                    packed = torch.sort(packed, dim=1).values[:, :width]  # left-pack
+                    tbl_t, tbl_c = front.decode_keys(packed, nbits)
+                    run_len = min(recompact, width)
+                    run_waves(tbl_t, tbl_c, 0, run_len)
+                    tbl_t, tbl_c = tbl_t[:, run_len:], tbl_c[:, run_len:]
+            else:
+                run_waves(ttbl, ctbl, W0, kk)
+
+        with span("tracer.fallback"):
+            # --- exact fallback for rays whose front table did not cover their
+            # hit range: every cluster for the needy rays only
+            needy = kth_tn < best_t
+            if any_hit:
+                needy = needy & (best_c < 0)
+            idx = needy.nonzero()[:, 0].int()
+            STATS["syncs"] += 1
+            STATS["fallback_rays"] += idx.shape[0]
+            if idx.shape[0] > 0:
+                if use_plain:
+                    wave.wave_sweep_plain(pp, dd, rows_tbl, idx, *state, fb_cc=fb_cc)
+                else:
+                    wave.wave_sweep(pp, dd, rows_tbl, idx, *state)
         return best_t, best_c, best_l
-
-    kk = min(front_k or MAX_FRONT, K)
-    if K > (dense_k or DENSE_K) and "sc_bmin" in bvh:
-        ttbl, ctbl, sc_horizon = _front_table_hierarchical(
-            pp, dd, bvh, t_limit, kk, expand_batch=expand_batch, levels=front_levels or 2,
-            sc_topk=sc_topk, sc_front=sc_front, slab_bf16=slab_bf16, plain=plain,
-        )
-        kth_tn = torch.minimum(ttbl[:, -1], sc_horizon)  # per-ray covered horizon
-    else:
-        ttbl, ctbl, _ = _front_table_dense(pp, dd, bvh, t_limit, kk, slab_bf16=slab_bf16)
-        kth_tn = ttbl[:, -1]
-
-    # the kernels of accel/wave.py for CUDA tensors, their plain versions
-    # for CPU tensors or when the caller asks for them
-    use_plain = plain or not pp.is_cuda
-    state = (best_t, best_c, best_l)  # updated in place from here on
-
-    def mt_step(col_t, col_c, step, dedup=False):
-        """Front-table columns col_t / col_c (n, w) for every ray: the
-        live entries are tested against the ray's best t at the call. The
-        plain version compacts the live rays by index, ``step`` at a time,
-        which is a host sync; the kernel gates each ray itself. dedup (one
-        column): wave_dedup's rows, or on the card its ray order."""
-        if use_plain:
-            wave.wave_mt_plain(pp, dd, rows_tbl, col_t, col_c, any_hit, *state, chunk=step,
-                               dedup=(wave_dedup, dedup_d) if dedup else None)
-            STATS["syncs"] += 1
-        elif dedup:
-            live = wave.live_columns(col_t[:, 0], best_t, best_c, any_hit)
-            order = wave.dedup_order(col_c[:, 0], live)
-            wave.wave_mt(pp, dd, rows_tbl, col_t, col_c, any_hit, *state, order=order)
-        else:
-            wave.wave_mt(pp, dd, rows_tbl, col_t, col_c, any_hit, *state)
-
-    # --- dense head: columns [0, W0) of every ray in one step
-    W0 = min(dense_waves, kk) if dense_waves else 0
-    if W0 > 0:
-        mt_step(ttbl[:, :W0], ctbl[:, :W0], dense_chunk)
-
-    def run_waves(tbl_t, tbl_c, w0, ncols):
-        """Columns [w0, ncols) of a table whose pending entries are
-        left-packed, one wave each: stops at the deepest column any ray
-        has."""
-        if w0 >= ncols:
-            return
-        depth = int((tbl_t[:, w0:ncols] < T_MAX).sum(dim=1).max())
-        STATS["syncs"] += 1
-        for w in range(w0, w0 + depth):
-            mt_step(tbl_t[:, w : w + 1], tbl_c[:, w : w + 1], chunk, dedup=wave_dedup != "off")
-            STATS["waves"] += 1
-
-    if recompact and 0 < recompact < kk - W0:
-        seg = min(W0 + recompact, kk)
-        run_waves(ttbl, ctbl, W0, seg)
-        tbl_t, tbl_c = ttbl[:, seg:], ctbl[:, seg:]
-        nbits = front.key_bits(K)
-        while tbl_t.shape[1] > 0:
-            live = wave.live_columns(tbl_t, best_t, best_c, any_hit)
-            width = int(live.sum(dim=1).max())
-            STATS["syncs"] += 1
-            if width == 0:
-                break
-            # the cluster id rides in the tn mantissa: truncation only
-            # LOWERS tn (keys clamped non-negative), permissive for the
-            # live gate; the MT stays exact
-            packed = torch.where(
-                live, front.pack_keys(front.clamp0(tbl_t), nbits, tbl_c), front.DEAD_KEY
-            )
-            packed = torch.sort(packed, dim=1).values[:, :width]  # left-pack
-            tbl_t, tbl_c = front.decode_keys(packed, nbits)
-            run_len = min(recompact, width)
-            run_waves(tbl_t, tbl_c, 0, run_len)
-            tbl_t, tbl_c = tbl_t[:, run_len:], tbl_c[:, run_len:]
-    else:
-        run_waves(ttbl, ctbl, W0, kk)
-
-    # --- exact fallback for rays whose front table did not cover their
-    # hit range: every cluster for the needy rays only
-    needy = kth_tn < best_t
-    if any_hit:
-        needy = needy & (best_c < 0)
-    idx = needy.nonzero()[:, 0].int()
-    STATS["syncs"] += 1
-    STATS["fallback_rays"] += idx.shape[0]
-    if idx.shape[0] > 0:
-        if use_plain:
-            wave.wave_sweep_plain(pp, dd, rows_tbl, idx, *state, fb_cc=fb_cc)
-        else:
-            wave.wave_sweep(pp, dd, rows_tbl, idx, *state)
-    return best_t, best_c, best_l
 
 
 def _winner_tri(scene, cid, lane):

@@ -88,7 +88,7 @@ import torch
 
 from phosphorus_mk2_tpu_torch.accel.build import CSRC, NVCC_FLAGS, find_nvcc, load_shared
 from phosphorus_mk2_tpu_torch.accel.intersect import T_MAX
-from phosphorus_mk2_tpu_torch.utils.profiling import counted
+from phosphorus_mk2_tpu_torch.utils.profiling import counted, tracing
 
 ROW_C = 128          # triangles of a cluster row (csrc/wave.cu C)
 WAVE_CHUNK = 1 << 17  # rays per step of wave_mt_plain unless the caller says
@@ -111,6 +111,15 @@ LAUNCHES = counted("accel.wave.LAUNCHES",
                    {"row_gather": 0, "wave_mt": 0, "wave_mt_bf16": 0, "wave_mt_ordered": 0,
                     "wave_mt_bf16_ordered": 0, "wave_sweep": 0, "wave_sweep_bf16": 0})
 ROW_TYPES = (torch.float32, torch.bfloat16)  # what wave_mt and wave_sweep take
+# What wave_mt's launches (and its plain version's calls) did, summed on
+# their device while a torch.profiler session is active: under (LAUNCHES
+# key, device) an int64 tensor of WORK_FIELDS, the live (ray, column)
+# pairs the gate let through, the lanes (rays met), the rays whose winner
+# changed and the distinct cluster rows of the live pairs. No host sync is
+# added; a reader takes the tensors once, after its window
+# (``RECORDER.read()["counters"]["accel.wave.WORK"]``).
+WORK_FIELDS = ("pairs", "rays", "winners", "rows")
+WORK = counted("accel.wave.WORK", {})
 
 _lib = None
 _resident = {}  # (device index, kernel) -> (SMs, blocks resident on an SM)
@@ -472,6 +481,39 @@ def _check_wave(p, d, table, col_t, col_c, best_t, best_c, best_l, order=None):
     _check_table(table, named, strided=[("col_t", col_t), ("col_c", col_c)])
 
 
+def _work_begin(col_t, col_c, any_hit, best_t, best_c, k, order):
+    """The part of a wave's WORK that its inputs decide, as device tensors
+    ((pairs, distinct rows), the lanes, best t before the wave), or None
+    when no torch.profiler session is active."""
+    if not tracing():
+        return None
+    live = _gated_columns(col_t, col_c, best_t, best_c, any_hit, k)
+    lanes = col_t.shape[0]
+    if order is not None:
+        listed = torch.zeros((lanes,), dtype=torch.bool, device=live.device)
+        listed[order.long()] = True
+        live = live & listed[:, None]
+        lanes = order.shape[0]
+    seen = torch.zeros((k + 1,), dtype=torch.int64, device=live.device)
+    seen.scatter_(0, torch.where(live, col_c, k).long().reshape(-1), 1)  # k: no row
+    return torch.stack([live.sum(), seen[:k].sum()]), lanes, best_t.clone()
+
+
+def _work_end(begun, key, best_t):
+    """Add a wave's counts to WORK[key, device] once the wave has run."""
+    if begun is None:
+        return
+    (pairs, rows), lanes, before = begun
+    acc = WORK.get((key, str(best_t.device)))
+    if acc is None:
+        acc = WORK[key, str(best_t.device)] = torch.zeros(
+            (len(WORK_FIELDS),), dtype=torch.int64, device=best_t.device)
+    acc[0] += pairs
+    acc[1] += lanes
+    acc[2] += (best_t < before).sum()
+    acc[3] += rows
+
+
 def _check_gate(gate):
     if gate is not None and gate not in GATES:
         raise ValueError(f"gate must be one of {GATES}, got {gate}")
@@ -500,9 +542,17 @@ def wave_mt_plain(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
     _check_gate(gate)
     if dedup is not None and (gate is not None or col_t.shape[1] != 1):
         raise ValueError("dedup takes one column and no gate")
+    work = _work_begin(col_t, col_c, any_hit, best_t, best_c, table.shape[0], order)
     if gate is not None:
-        return _wave_mt_gated(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, gate,
-                              order)
+        _wave_mt_gated(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, gate, order)
+    else:
+        _wave_mt_compacted(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, chunk,
+                           order, dedup)
+    _work_end(work, _launch_key("wave_mt", table, order is not None), best_t)
+
+
+def _wave_mt_compacted(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l, chunk,
+                       order, dedup):
     C = table.shape[2]
     live_ray = live_columns(col_t, best_t, best_c, any_hit).any(dim=1)
     if order is not None:  # only the listed rays
@@ -589,6 +639,7 @@ def wave_mt(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
     if n == 0:
         return
     g = gate or gate_plan(n, *resident(lib, p.device, table.dtype))["g"]
+    work = _work_begin(col_t, col_c, any_hit, best_t, best_c, table.shape[0], order)
     err = lib.wave_mt_launch(
         p.data_ptr(), d.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
         table.shape[0], col_t.data_ptr(), col_c.data_ptr(), col_t.stride(0), col_c.stride(0),
@@ -598,7 +649,9 @@ def wave_mt(p, d, table, col_t, col_c, any_hit, best_t, best_c, best_l,
     )
     if err != 0:
         raise RuntimeError(f"wave_mt launch failed: cudaError {err}")
-    LAUNCHES[_launch_key("wave_mt", table, order is not None)] += 1
+    key = _launch_key("wave_mt", table, order is not None)
+    LAUNCHES[key] += 1
+    _work_end(work, key, best_t)
 
 
 # ---------------------------------------------------------------------------

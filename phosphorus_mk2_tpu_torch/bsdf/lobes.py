@@ -56,6 +56,7 @@ from phosphorus_mk2_tpu_torch.math.vec import (
     safe_pow,
     safe_sqrt,
 )
+from phosphorus_mk2_tpu_torch.utils.profiling import span
 
 INV_PI = 1.0 / math.pi
 
@@ -559,30 +560,32 @@ def _sorted_dispatch(fns, present, lobe_type, lanes, out_shapes):
     the host, each type's function on a _Lanes of its exact segment, and
     the results put back in lane order. Lanes of other types get zeros.
     lanes: the _Lanes fields by name; out_shapes: the trailing shape of
-    each output."""
-    num = lobe_type.shape[0]
-    order = torch.argsort(lobe_type, stable=True)
-    counts = torch.bincount(lobe_type, minlength=NUM_LOBE_TYPES).tolist()
-    lanes_s = {k: v[order] for k, v in lanes.items()}
-    run = set(present) & set(fns)
-    ref = lanes["wi"]
-    pieces = [[] for _ in out_shapes]
-    off = 0
-    for T, cnt in enumerate(counts):
-        if cnt:
-            if T in run:
-                outs = fns[T](_Lanes(**{k: v[off:off + cnt] for k, v in lanes_s.items()}))
-            else:
-                outs = [torch.zeros((cnt, *shp), dtype=ref.dtype, device=ref.device)
-                        for shp in out_shapes]
-            for k, o in enumerate(outs):
-                pieces[k].append(o)
-        off += cnt
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(num, dtype=order.dtype, device=order.device)
-    return tuple(torch.cat(p)[inv] if p else
-                 torch.zeros((0, *shp), dtype=ref.dtype, device=ref.device)
-                 for p, shp in zip(pieces, out_shapes))
+    each output. The call is the span ``bsdf.sorted_dispatch`` while a
+    torch.profiler session is active, the counts' host read included."""
+    with span("bsdf.sorted_dispatch"):
+        num = lobe_type.shape[0]
+        order = torch.argsort(lobe_type, stable=True)
+        counts = torch.bincount(lobe_type, minlength=NUM_LOBE_TYPES).tolist()
+        lanes_s = {k: v[order] for k, v in lanes.items()}
+        run = set(present) & set(fns)
+        ref = lanes["wi"]
+        pieces = [[] for _ in out_shapes]
+        off = 0
+        for T, cnt in enumerate(counts):
+            if cnt:
+                if T in run:
+                    outs = fns[T](_Lanes(**{k: v[off:off + cnt] for k, v in lanes_s.items()}))
+                else:
+                    outs = [torch.zeros((cnt, *shp), dtype=ref.dtype, device=ref.device)
+                            for shp in out_shapes]
+                for k, o in enumerate(outs):
+                    pieces[k].append(o)
+            off += cnt
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(num, dtype=order.dtype, device=order.device)
+        return tuple(torch.cat(p)[inv] if p else
+                     torch.zeros((0, *shp), dtype=ref.dtype, device=ref.device)
+                     for p, shp in zip(pieces, out_shapes))
 
 
 def eval_lobe_sorted(lobe_type, params, n, wi, wo, present):
