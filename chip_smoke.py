@@ -32,8 +32,8 @@
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: csrc/mt.cu, csrc/front.cu and csrc/wave.cu with nvcc and the
-     native BVH builder csrc/bvh_builder.cpp with g++, all started
+  2. build: csrc/mt.cu, csrc/front.cu, csrc/wave.cu, csrc/rows_backward.cu
+     and csrc/bsdf.cu with nvcc and the native BVH builder csrc/bvh_builder.cpp with g++, all started
      together; the ptxas report, and the instructions of the MT kernels'
      inner loops, wave_mt's loop over a group's rays and wave_sweep's
      loops (a warp's rows in the warp layout, a thread's staged quads in
@@ -141,6 +141,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (the sort timed apart), and beside each wave_sweep shape its bf16-row
      instance, each with 2,304-byte rows in its bytes bound, its own
      instructions in its issue floor and its plain version's time;
+     7b. the lobe container's kernels (csrc/bsdf.cu: bsdf_eval for
+     bsdf_f and bsdf_pdf, bsdf_sample) on the inputs of the main path's
+     own calls, kept from one pass of multi_bsdf_scene 512x512 and of
+     cornell_box 256x256 (131,072 hits x 2 slots, 65,536 x 1): bit-equal
+     to the eager lobe code with the sorted and with the dense dispatch,
+     twice bit-equal, counted once a call, timed beside the bytes bound
+     and the eager sorted dispatch;
   8. gradients and inverse rendering (integrator/path.py render_pass with
      gradients, trainable=, sorted_dispatch=; optim.InverseRenderer),
      every tracer call primal: (1) gradients of color.sum() with respect
@@ -160,9 +167,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      bmw_fwd_bwd shape on the full-size terrain_scene (1 << 16 pixels,
      2 spp, depth 3, use_bvh=True, sorted_dispatch=False): gradients
      finite, front and wave kernels launched; (5) multi_bsdf_scene
-     512x512 depth 9 2 spp with the sorted and the dense lobe dispatch:
-     films bit-equal, both timed; gradients at 256x256 depth 2 within
-     2e-4; (6) InverseRenderer recovering cornell_box's lamp from 0.3x at
+     512x512 depth 9 2 spp, no-grad, on the eager lobe code with the
+     sorted and the dense dispatch and on the kernel route: the three
+     films bit-equal, each timed; gradients (eager) with the sorted and
+     the dense dispatch at 256x256 depth 2 within 2e-4; (6) InverseRenderer recovering cornell_box's lamp from 0.3x at
      256x256 (log emission, unbiased loss, 8 spp, depth 3), the criteria
      of tests/test_optim.py, then a checkpoint resumed in a new
      InverseRenderer equal to the uninterrupted run within 1e-6.
@@ -393,8 +401,8 @@ def build_all(mods):
         secs = {name: f.result() for name, f in futures.items()}
     print(f"built into {mods['mt'].BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
           + " ".join(f"{k} {v:.2f} s" for k, v in secs.items()), flush=True)
-    for name in ("mt", "front", "wave", "grad_gather"):
-        for line in mods[name].build_log.splitlines():
+    for name in ("mt", "front", "wave", "grad_gather", "bsdf"):
+        for line in mods[name].build_log.splitlines() if name in mods else ():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  " + line.strip(), flush=True)
 
@@ -1306,6 +1314,19 @@ def resume_on_card(pt, scenes, zero, read):
             counts)
 
 
+# the modules whose LAUNCHES the kernels line counts: accel/mt.py, front.py,
+# wave.py and bsdf/kernel.py (set in run())
+COUNTED = ()
+
+
+def launch_keys():
+    return {k: 0 for mod in COUNTED for k in mod.LAUNCHES}
+
+
+def launches_now():
+    return {k: v for mod in COUNTED for k, v in mod.LAUNCHES.items()}
+
+
 def zero_counts(*mods):
     for mod in mods:
         for k in mod.LAUNCHES:
@@ -1346,7 +1367,7 @@ def main_path(mt, front, wave, ct, probe, pt, scenes, dev):
         ("texture-heavy cornell_box f16 brute", lambda: texture_heavy_scene(scenes, "f16"),
          256, 256, textured, ("mt_closest", "mt_anyhit"), "heavy"),
     ]
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
+    totals = launch_keys()
     per_render, films, heavy = [], {}, {}
     for label, make, w, h, kw, expect, checks in configs:
         opts = pt.Options(**kw)
@@ -1356,13 +1377,13 @@ def main_path(mt, front, wave, ct, probe, pt, scenes, dev):
         setup = time.perf_counter() - t0
         r.render()  # warm-up: allocator and first launches, not timed
         torch.cuda.synchronize()
-        zero_counts(mt, front, wave)
+        zero_counts(*COUNTED)
         for k in ct.STATS:
             ct.STATS[k] = 0
         t0 = time.perf_counter()
         film = r.render()  # returns host arrays: the device work is done
         secs = time.perf_counter() - t0
-        counts = {**mt.LAUNCHES, **front.LAUNCHES, **wave.LAUNCHES}
+        counts = launches_now()
         traced = dict(ct.STATS)
         for k in expect:
             check(counts[k] > 0, f"{label}: kernel {k} was not launched on the main path")
@@ -1412,8 +1433,8 @@ def main_path(mt, front, wave, ct, probe, pt, scenes, dev):
     print(lookups_card_vs_cpu(heavy), flush=True)
     print(heavy_card_vs_cpu(pt, scenes), flush=True)
     text, resume_counts = resume_on_card(
-        pt, scenes, lambda: zero_counts(mt, front, wave),
-        lambda: {**mt.LAUNCHES, **front.LAUNCHES, **wave.LAUNCHES})
+        pt, scenes, lambda: zero_counts(*COUNTED),
+        lambda: launches_now())
     print(text, flush=True)
     check(resume_counts["mt_closest"] > 0, "the resumed render did not launch mt_closest")
     for k in resume_counts:
@@ -1421,7 +1442,7 @@ def main_path(mt, front, wave, ct, probe, pt, scenes, dev):
     per_render.append({"render": "resume cornell_box: first pass + resumed passes",
                        "launches": resume_counts})
     # the row-gather probe, as its command line runs it
-    zero_counts(mt, front, wave)
+    zero_counts(*COUNTED)
     probed = [probe.probe(variant, device="cuda") for variant in wave.VARIANTS]
     check(wave.LAUNCHES["row_gather"] > 0, "the probe did not launch row_gather")
     totals["row_gather"] += wave.LAUNCHES["row_gather"]
@@ -2260,6 +2281,126 @@ def sweep_timing_only(more) -> int:
     return 0
 
 
+def lanes_differ(a, b) -> int:
+    """How many lanes of a and b differ in their bits (two NaNs agree)."""
+    if a.is_floating_point():
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    else:
+        same = a == b
+    return int((~same.reshape(same.shape[0], -1).all(dim=1)).sum())
+
+
+@contextlib.contextmanager
+def eager_bsdf():
+    """Every lobe container call on the eager lobe code (bsdf/lobes.py),
+    as autograd's and the CPU's calls run, for a comparison with the
+    kernel route."""
+    from phosphorus_mk2_tpu_torch.bsdf import bsdf
+
+    real = bsdf._kernel_route
+    bsdf._kernel_route = lambda *args: False
+    try:
+        yield
+    finally:
+        bsdf._kernel_route = real
+
+
+def bsdf_timing(bk, pt, scenes, launches):
+    """7b: the lobe container's kernels (csrc/bsdf.cu through
+    bsdf/kernel.py) on the inputs of the main path's own calls: one
+    no-grad pass of the Renderer on multi_bsdf_scene 512x512 and on
+    cornell_box 256x256 with the benchmark cells' options (4 spp, MIS,
+    the BVH; depth 9: 131,072 hits x 2 slots a chunk, and depth 2: 65,536
+    hits x 1 slot),
+    each entry's first and last call of the pass kept as it was handed
+    over. On each: the kernel bit-equal to the eager code with the
+    type-sorted and with the dense dispatch (two NaNs agree), twice
+    bit-equal, counted once a call; ms a call (CUDA events, the launch
+    included) beside the bytes bound (each slot's type, flags, weight and
+    three parameters, the count, the normal, the directions and the
+    uniforms read once, the outputs written once, at 3.35 TB/s) and the
+    eager sorted dispatch's ms as plain_ms. Returns the kernels line's
+    rows, bsdf_eval and bsdf_sample at multi_bsdf_scene's first calls,
+    with the other calls' times beside them."""
+    from phosphorus_mk2_tpu_torch.bsdf import bsdf
+
+    entries = {"bsdf_f": ("bsdf_eval", bsdf._bsdf_f_eager, 12),
+               "bsdf_pdf": ("bsdf_eval", bsdf._bsdf_pdf_eager, 4),
+               "bsdf_sample": ("bsdf_sample", bsdf._bsdf_sample_eager, 36)}
+    real = {e: getattr(bk, e) for e in entries}
+    kept = {}
+
+    def keeper(label, entry):
+        def call(*args):
+            calls = kept.setdefault((label, entry), [])
+            if len(calls) == 2:
+                calls.pop()
+            calls.append(args)
+            return real[entry](*args)
+        return call
+
+    fwd = dict(samples_per_pixel=4, samples_per_pass=4)
+    for label, scene, kw in (
+            ("multi_bsdf_scene 512x512 depth 9", scenes.multi_bsdf_scene(512, 512),
+             dict(use_bvh=True, mis=True, path_depth=9, **fwd)),
+            ("cornell_box 256x256 depth 2", scenes.cornell_box(256, 256),
+             dict(use_bvh=True, mis=True, path_depth=2, **fwd))):
+        r = pt.Renderer(scene, pt.Options(**kw), device="cuda")
+        for entry in entries:
+            setattr(bk, entry, keeper(label, entry))
+        try:
+            r.render()
+        finally:
+            for entry in entries:
+                setattr(bk, entry, real[entry])
+    torch.cuda.synchronize()
+    check(len(kept) == 6, f"bsdf: the passes did not call every entry: {sorted(kept)}")
+    out = []
+    for (label, entry), calls in kept.items():
+        kname, eager, out_b = entries[entry]
+        for which, args in zip(("first", "last"), calls):
+            lobes, lanes = args[0], args[1].shape[0]
+            slots = lobes.get("max_lobes", 8)
+            k0, n0 = bk.LAUNCHES[kname], dict(bsdf.LAUNCHES)
+            a, b = (tuple(x) if isinstance(x, tuple) else (x,)
+                    for x in (real[entry](*args), real[entry](*args)))
+            torch.cuda.synchronize()
+            counted = bk.LAUNCHES[kname] - k0
+            check(dict(bsdf.LAUNCHES) == n0, "bsdf: a direct kernel call counted a route")
+            want = {}
+            for sd in (True, False):
+                got = eager(dict(lobes, sorted_ok=sd), *args[1:])
+                want[sd] = tuple(got) if isinstance(got, tuple) else (got,)
+            differ = {"twice": sum(map(lanes_differ, a, b)),
+                      "sorted": sum(map(lanes_differ, a, want[True])),
+                      "dense": sum(map(lanes_differ, a, want[False]))}
+            in_b = slots * (8 + 8 + 12 + 12) + 8 + 12 + 12 + (8 if entry == "bsdf_sample" else 12)
+            row = {"name": kname, "route": "cuda",
+                   "source": "phosphorus_mk2_tpu_torch/csrc/bsdf.cu",
+                   "replaces": None, "launches": launches[kname],
+                   "max_abs_err": 0.0 if not any(differ.values()) else None,
+                   "ms": cuda_ms(lambda: real[entry](*args), 200),
+                   "plain_ms": cuda_ms(lambda: eager(dict(lobes, sorted_ok=True), *args[1:]), 5),
+                   "bound_ms": lanes * (in_b + out_b) / H100_BYTES * 1e3, "bound_by": "bytes",
+                   "library_ms": None, "parity": not any(differ.values()),
+                   "shape": f"{lanes} hits x {slots} slots ({label}, {entry}, {which} call)",
+                   "entry": entry, "lanes_differ": differ, "counted": counted}
+            print(f"{kname} ({entry}) {row['shape']}: lanes differing {differ}, counted "
+                  f"{counted} for 2 calls; {row['ms']:.5f} ms/launch, bound "
+                  f"{row['bound_ms']:.5f} ms (bytes), eager sorted {row['plain_ms']:.4f} ms",
+                  flush=True)
+            check(counted == 2 and row["parity"], f"bsdf: {row}")
+            out.append(row)
+    rows = []
+    for kname, entry in (("bsdf_eval", "bsdf_f"), ("bsdf_sample", "bsdf_sample")):
+        head = next(r for r in out if r["entry"] == entry)
+        head["other_shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+                                for r in out if r["name"] == kname and r is not head]
+        rows.append(head)
+    print(json.dumps({"bsdf_kernels": out}), flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 8: gradients and inverse rendering
 # ---------------------------------------------------------------------------
@@ -2510,12 +2651,15 @@ def bvh_grads(path, ct, terrain, terrain_data, dev, count):
 
 
 def sorted_dispatch_card(path, scenes, dev, count):
-    """8.5: multi_bsdf_scene 512x512, depth 9, 2 spp, brute, forward with
-    the sorted and the dense dispatch (films bit-equal; timed in turns:
-    sorted, dense, dense, sorted), then gradients at 256x256, depth 2,
-    within 2e-4 of each field's max |g| (tests/test_grad.py's bound). The
-    four timed forwards are counted; the warm-ups and the gradient
-    comparison not."""
+    """8.5: multi_bsdf_scene 512x512, depth 9, 2 spp, brute, no-grad
+    forward on the eager lobe code with the sorted and with the dense
+    dispatch, and on the kernel route (csrc/bsdf.cu): the three films
+    bit-equal; timed in turns (eager sorted, eager dense, kernel, kernel,
+    eager dense, eager sorted). Then gradients (the eager code: autograd
+    records them) at 256x256, depth 2, with the sorted and the dense
+    dispatch within 2e-4 of each field's max |g| (tests/test_grad.py's
+    bound). The six timed forwards are counted; the warm-ups and the
+    gradient comparison not."""
     from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
 
     out = {}
@@ -2531,25 +2675,36 @@ def sorted_dispatch_card(path, scenes, dev, count):
                     return path.render_pass(data, cam, 0, 0, 2, width=w, height=h, max_depth=9,
                                             tracer=tracer, sorted_dispatch=sd)["color"]
 
-            films, secs, runs = {}, {True: [], False: []}, []
-            for sd in (True, False):
-                fwd(sd)  # warm-up
-            for sd in (True, False, False, True):
-                (films[sd], t, _), n = count(lambda: timed(lambda: fwd(sd)))
-                secs[sd].append(t)
-                runs.append({"sorted": sd, "launches": n})
-            check(torch.equal(films[True], films[False]),
-                  f"multi_bsdf_scene: sorted and dense films differ by "
-                  f"{float((films[True] - films[False]).abs().max())}")
+            def eager(sd):
+                with eager_bsdf():
+                    return fwd(sd)
+
+            routes = {"eager sorted": lambda: eager(True), "eager dense": lambda: eager(False),
+                      "kernel": lambda: fwd(True)}
+            for fn in routes.values():
+                fn()  # warm-up
+            films, secs, runs = {}, {k: [] for k in routes}, []
+            for route in ("eager sorted", "eager dense", "kernel", "kernel", "eager dense",
+                          "eager sorted"):
+                (films[route], t, _), n = count(lambda: timed(routes[route]))
+                secs[route].append(t)
+                runs.append({"route": route, "launches": n})
+                k = n.get("bsdf_eval", 0) + n.get("bsdf_sample", 0)
+                check((k > 0) == (route == "kernel"),
+                      f"multi_bsdf_scene: the {route} forward launched {k} bsdf kernels")
+            for a, b in (("eager sorted", "eager dense"), ("kernel", "eager sorted"),
+                         ("kernel", "eager dense")):
+                check(torch.equal(films[a], films[b]),
+                      f"multi_bsdf_scene: the {a} and {b} films differ by "
+                      f"{float((films[a] - films[b]).abs().max())}")
             rays = w * h * 2 * 9 * 2
-            out = {"rays": rays, "sorted_s": secs[True], "dense_s": secs[False],
-                   "sorted_rays_per_s": [rays / t for t in secs[True]],
-                   "dense_rays_per_s": [rays / t for t in secs[False]], "launches": runs}
-            print(f"multi_bsdf_scene {w}x{h} 2 spp depth 9 brute forward: sorted dispatch "
-                  + ", ".join(f"{rays / t / 1e6:.4f}" for t in secs[True])
-                  + " Mrays/s, dense " + ", ".join(f"{rays / t / 1e6:.4f}" for t in secs[False])
-                  + " Mrays/s (in turns sorted, dense, dense, sorted); films bit-equal",
-                  flush=True)
+            out = {"rays": rays, **{f"{k.replace(' ', '_')}_s": v for k, v in secs.items()},
+                   **{f"{k.replace(' ', '_')}_rays_per_s": [rays / t for t in v]
+                      for k, v in secs.items()}, "launches": runs}
+            print(f"multi_bsdf_scene {w}x{h} 2 spp depth 9 brute no-grad forward, Mrays/s in "
+                  "turns: " + "; ".join(f"{k} " + ", ".join(f"{rays / t / 1e6:.4f}" for t in v)
+                                        for k, v in secs.items())
+                  + "; the three films bit-equal", flush=True)
         else:
             names = ("emission", "lobe_weight", "lobe_param")
             (_, gs), (_, gd) = (grad_render(path, data, cam, w, h, 2, 2, tracer, names,
@@ -2648,8 +2803,8 @@ def gradients_phase(pt, scenes, ct, mt, front, wave, terrain, terrain_data, dev,
 
     grads_kernels_vs_plain(path, scenes, terrain, terrain_data, dev)
     grads_card_vs_cpu(path, scenes, dev)
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
-    count = launch_counter((mt, front, wave), totals)
+    totals = launch_keys()
+    count = launch_counter(COUNTED, totals)
     summary = {
         "full_width": full_width_grads(path, scenes, dev, profile, count),
         "bvh": bvh_grads(path, ct, terrain, terrain_data, dev, count),
@@ -2896,8 +3051,8 @@ def sharded_on_card(pt, scenes, dev, card, phase5_film, count):
 
 def scene_io_phase(pt, scenes, mt, front, wave, dev, smi, phase5_films):
     """Phase 9. Its main path is the counted calls of 9a-9c."""
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
-    count = launch_counter((mt, front, wave), totals)
+    totals = launch_keys()
+    count = launch_counter(COUNTED, totals)
     summary = {
         "bmw": bmw_on_card(pt, dev, smi, count),
         "yaml_exr": yaml_exr_on_card(pt, dev, count),
@@ -3123,8 +3278,8 @@ def profile_on_card(pt, scenes, dev, count):
 def entry_points_phase(pt, scenes, mt, front, wave, dev, phase5_films):
     """Phase 10. Its main path is the counted calls of 10a-c, e and f; the
     bench (10d) runs in its own process and prints its own lines."""
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
-    count = launch_counter((mt, front, wave), totals)
+    totals = launch_keys()
+    count = launch_counter(COUNTED, totals)
     summary = {
         "cli": cli_on_card(pt, scenes, dev, phase5_films["cornell_box brute"], count),
         "bench": bench_on_card(),
@@ -3371,8 +3526,8 @@ def oracle_phase(pt, scenes, mt, front, wave, terrain, terrain_data, dev, smi):
     from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
     from phosphorus_mk2_tpu_torch.integrator.path import make_scene_tables
 
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
-    count = launch_counter((mt, front, wave), totals)
+    totals = launch_keys()
+    count = launch_counter(COUNTED, totals)
     summary = {"tracers": {}}
     for i, name in enumerate(("cornell_box", "sphere_in_box")):
         data = attach_bvh(getattr(scenes, name)(64, 64).build(device=dev), builder="native")
@@ -3792,8 +3947,8 @@ def tunables_phase(ct, mt, front, wave, bench, scenes, terrain_data, tp, td, dev
         # is a cluster it does not hit): its second wave holds the winners
         wave, ct, [("terrain_scene", terrain_data, tp, td, (0, 7)), ("BMW", data, bp, bd, (0, 1))],
         ("terrain_scene", terrain_data, tp, td, mixed_limits(32, tp.shape[0], dev)), dev)
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
-    count = launch_counter((mt, front, wave), totals)
+    totals = launch_keys()
+    count = launch_counter(COUNTED, totals)
     summary = {"parity_rows_fetched": fetched,
                "traces": bmw_tunables(ct, wave, data, bp, bd, dev, count),
                "films": bmw_tuned_films(ct, scene, data, dev, count)}
@@ -4037,8 +4192,8 @@ def options_phase(pt, ct, mt, front, wave, bench, scenes, dev, smi):
     check(bmw_data.num_tris == BMW_TRIS, f"BMW: {bmw_data.num_tris} triangles, not {BMW_TRIS}")
     box = scenes.cornell_box(256, 256)
     box_data = box.build(device=dev)
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
-    count = launch_counter((mt, front, wave), totals)
+    totals = launch_keys()
+    count = launch_counter(COUNTED, totals)
     res = {"pipeline_shadow": pipelined_films(
         path, ct, [("cornell_box", box, box_data, False, 1.0),
                    ("BMW", bmw_scene, bmw_data, True, 0.999)], dev, count)}
@@ -4394,8 +4549,8 @@ def shading_phase(pt, ct, mt, front, wave, bench, scenes, terrain, terrain_data,
     bmw_scene, bmw_data = bench.load_bmw(dev)
     print(f"BMW loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     check(bmw_data.num_tris == BMW_TRIS, f"BMW: {bmw_data.num_tris} triangles, not {BMW_TRIS}")
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
-    count = launch_counter((mt, front, wave), totals)
+    totals = launch_keys()
+    count = launch_counter(COUNTED, totals)
     fwd = dict(use_bvh=True, samples_per_pixel=4, samples_per_pass=4, path_depth=4)
     res = {"forward": shading_forward(pt, path, ct, [
         ("terrain_scene 256x256 4 spp depth 4", scenes.terrain_scene(width=256, height=256),
@@ -4609,8 +4764,8 @@ def blender_phase(pt, mt, front, wave, dev, smi):
     t0 = time.perf_counter()
     bpy = blender_stub.install()
     check(bpy.types.RenderEngine is blender_stub.RenderEngine, "phase 15: another bpy is loaded")
-    totals = {k: 0 for k in (*mt.LAUNCHES, *front.LAUNCHES, *wave.LAUNCHES)}
-    count = launch_counter((mt, front, wave), totals)
+    totals = launch_keys()
+    count = launch_counter(COUNTED, totals)
     res = {"bmw": blender_bmw(pt, dev, count, smi), "quad": blender_quad(pt, dev, count, smi)}
     for part, kernels in (("bmw", ("front_full", "wave_mt", "wave_sweep")),
                           ("quad", ("mt_closest", "mt_anyhit"))):
@@ -4641,6 +4796,12 @@ def run(profile: bool, upto: int, only_tunables: bool = False, only_options: boo
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
+    try:
+        from phosphorus_mk2_tpu_torch.bsdf import kernel as bk
+    except ImportError:  # another checkout's port (--package) without the bsdf kernels
+        bk = None
+    global COUNTED
+    COUNTED = (mt, front, wave) + ((bk,) if bk else ())
     dev = torch.device("cuda")
 
     phase("1 device")
@@ -4650,7 +4811,7 @@ def run(profile: bool, upto: int, only_tunables: bool = False, only_options: boo
 
     phase("2 build")
     build_all({"mt": mt, "front": front, "wave": wave, "native_bvh": native_bvh,
-               "grad_gather": grad_gather})
+               "grad_gather": grad_gather, **({"bsdf": bk} if bk else {})})
     sass = sass_loops(mt, wave)
     if upto < 3:
         return 0
@@ -4727,6 +4888,8 @@ def run(profile: bool, upto: int, only_tunables: bool = False, only_options: boo
                         sass.get("wave_mt_kernel bf16"))
     rows += sweep_timing(wave, terrain_data.bvh["cluster_rows"], p4, d4, needy, launches, errs,
                          dev, sass, rows[0]["sm_clock_mhz"], terrain_data.bvh["cluster_rows_bf16"])
+    phase("7b the lobe container's kernels")
+    rows += bsdf_timing(bk, pt, scenes, launches)
     if upto < 8:
         return 0
 

@@ -7,9 +7,15 @@ sample reuse), then folds in the values and pdfs of flag-compatible
 other lobes and averages the pdf.
 
 The container is a struct of tensors over the wavefront: per-hit lobe
-arrays gathered from the material tables by material id. Lobes are
-dispatched densely or, under the JAX package's gate, by type-sorted
-segments (see bsdf/lobes.py); both give the same values. Textures modulate lobe weights
+arrays gathered from the material tables by material id. A call on
+CUDA tensors that autograd need not record (no grad mode, or no input
+that requires grad) is one launch of a kernel (bsdf/kernel.py,
+csrc/bsdf.cu). Every other call, autograd's and the CPU's, runs the
+eager lobe code: lobes dispatched densely or, under the JAX package's
+gate, by type-sorted segments (see bsdf/lobes.py). All three give the
+same values. ``LAUNCHES`` counts the calls of each route; a call is the
+span ``bsdf.kernel`` or ``bsdf.eager`` while a torch.profiler session is
+active. Textures modulate lobe weights
 (``apply_textures``) and emission (``emission_at``, ``emission_from_row``,
 ``env_emission_at``); all of it is the identity for untextured scenes.
 """
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from phosphorus_mk2_tpu_torch.bsdf import kernel
 from phosphorus_mk2_tpu_torch.bsdf.lobes import (
     eval_lobe,
     eval_lobe_sorted,
@@ -38,6 +45,10 @@ from phosphorus_mk2_tpu_torch.math.fresnel import dielectric
 from phosphorus_mk2_tpu_torch.math.grad_gather import gather_rows
 from phosphorus_mk2_tpu_torch.math.sampling import remap_index_sample
 from phosphorus_mk2_tpu_torch.math.vec import dot
+from phosphorus_mk2_tpu_torch.utils.profiling import counted, span
+
+# the container calls (bsdf_f, bsdf_pdf, bsdf_sample) by route
+LAUNCHES = counted("bsdf.LAUNCHES", {"bsdf_kernel": 0, "bsdf_eager": 0})
 
 
 def material_tables(scene):
@@ -377,12 +388,37 @@ def _slots(L: int, device):
     return torch.arange(L, device=device)[None, :]
 
 
+def _kernel_route(lobes: dict, *xs) -> bool:
+    """Whether a container call takes its kernel: the inputs are on CUDA,
+    and autograd has nothing to record (grad mode off, or neither the
+    directions, the uniforms nor the lobe weights and parameters require
+    grad)."""
+    if not xs[0].is_cuda:
+        return False
+    return not torch.is_grad_enabled() or not any(
+        t.requires_grad for t in (*xs, lobes["weight"], lobes["param"]))
+
+
+def _call(kernel_fn, eager_fn, lobes: dict, *xs):
+    """Run one container call on its route, spanned, and count it once it
+    has returned."""
+    route, fn = ("kernel", kernel_fn) if _kernel_route(lobes, *xs) else ("eager", eager_fn)
+    with span(f"bsdf.{route}"):
+        out = fn(lobes, *xs)
+    LAUNCHES[f"bsdf_{route}"] += 1
+    return out
+
+
 def bsdf_f(lobes: dict, n, wi, wo):
     """Evaluate the container (reference bsdf_t::f, src/bsdf.cpp:113-131).
 
     wi = direction toward the light; wo = toward the viewer. Includes the
     incident-cosine factor. Returns (N, 3) rgb.
     """
+    return _call(kernel.bsdf_f, _bsdf_f_eager, lobes, n, wi, wo)
+
+
+def _bsdf_f_eager(lobes: dict, n, wi, wo):
     L = lobes.get("max_lobes", MAX_LOBES)
     atl = dot(n, wi)
     match = _hemisphere_match(lobes["flags"][:, :L], n, wi, wo)
@@ -396,6 +432,10 @@ def bsdf_pdf(lobes: dict, n, wi, wo):
     """Solid-angle pdf of the uniform one-sample lobe mixture sampling
     ``wi`` given the viewer direction ``wo``: (1/n_lobes) times the sum
     of the active hemisphere-matching lobes' pdfs. Returns (N,)."""
+    return _call(kernel.bsdf_pdf, _bsdf_pdf_eager, lobes, n, wi, wo)
+
+
+def _bsdf_pdf_eager(lobes: dict, n, wi, wo):
     L = lobes.get("max_lobes", MAX_LOBES)
     match = _hemisphere_match(lobes["flags"][:, :L], n, wi, wo)
     active = _slots(L, n.device) < lobes["n"][:, None]
@@ -410,6 +450,10 @@ def bsdf_sample(lobes: dict, n, wi, u2):
     wi = direction toward the previous path vertex; u2 = (N, 2) uniforms.
     Returns (f (N,3), wo (N,3), pdf (N,), flags (N,) int64).
     """
+    return _call(kernel.bsdf_sample, _bsdf_sample_eager, lobes, n, wi, u2)
+
+
+def _bsdf_sample_eager(lobes: dict, n, wi, u2):
     n_lobes = torch.clamp(lobes["n"], min=1)
     idx, u_remap = remap_index_sample(u2[..., 0], n_lobes)
 

@@ -1,0 +1,212 @@
+"""The lobe container's kernels (bsdf/kernel.py, csrc/bsdf.cu) on a CUDA
+card against the eager lobe code, lane by lane: ``bsdf_f``, ``bsdf_pdf``
+and ``bsdf_sample`` bit-equal to the dense and to the type-sorted
+dispatch, for each lobe type alone and all mixed, at 1, 2 and 8 slots,
+on edge lanes (grazing and back-facing directions, a degenerate frame,
+the eta = 1 passthrough, total internal reflection, no lobes, a pdf of 0)
+and on strided views; bit-equal twice; one count a call. Two NaNs count
+as equal whatever their payloads. Needs a card: the ``card`` fixture
+skips without one (``python -m pytest tests/test_torch_bsdf_kernel_card.py``
+on the card's machine). No JAX here: the eager code is the reference."""
+import pytest
+import torch
+
+from phosphorus_mk2_tpu_torch.bsdf import bsdf, kernel
+from phosphorus_mk2_tpu_torch.core.material import LOBE_FLAGS
+
+TYPES = tuple(sorted(LOBE_FLAGS))  # the eight lobe types
+LANES = 8192  # wide enough for the sorted dispatch's gate
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _unit(x):
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def _case(seed, lanes, slots, types, dev, present=None):
+    """Seeded lobes and directions, with edge lanes at the front."""
+    g = torch.Generator().manual_seed(seed)
+    pick = torch.randint(0, len(types), (lanes, slots), generator=g)
+    t = torch.tensor(types)[pick]
+    flags = torch.tensor([LOBE_FLAGS.get(k, 0) for k in range(max(TYPES) + 1)])[t]
+    n_lobes = torch.randint(0, slots + 1, (lanes,), generator=g)
+    param = torch.rand((lanes, slots, 6), generator=g) * 0.9 + 0.05
+    param[..., 2] = 1.0 + torch.rand((lanes, slots), generator=g)
+    param[::7, :, 2] = 1.0                  # the refractive GGX passthrough
+    param[3::11, :, 2] = 0.5                # eta < 1 for the refractions
+    weight = torch.rand((lanes, slots, 3), generator=g)
+    n = _unit(torch.randn((lanes, 3), generator=g))
+    wi = _unit(torch.randn((lanes, 3), generator=g))
+    wo = _unit(torch.randn((lanes, 3), generator=g))
+    u2 = torch.rand((lanes, 2), generator=g)
+    if lanes >= 16:  # edge lanes
+        n[0:6] = torch.tensor([0.0, 1.0, 0.0])
+        wi[0] = torch.tensor([1.0, 0.0, 0.0])           # grazing wi
+        wo[1] = torch.tensor([0.0, 0.0, 1.0])           # grazing wo
+        wi[2] = torch.tensor([0.0, -1.0, 0.0])          # wi back-facing, along -n
+        wo[3], wi[3] = torch.tensor([0.0, -1.0, 0.0]), torch.tensor([0.0, 1.0, 0.0])
+        wi[4] = _unit(torch.tensor([1.0, 0.02, 0.0]))   # near grazing: total internal reflection
+        param[4, :, 2] = 2.0
+        wi[5] = _unit(torch.tensor([1.0, -0.02, 0.0]))
+        param[5, :, 2] = 2.0
+        n[6] = _unit(torch.tensor([1.0, 1.0, 1.0]))     # the frame's fallback (nx == ny == nz)
+        n_lobes[7] = 0                                  # no lobes
+        u2[8] = torch.tensor([0.0, 0.0])
+        u2[9] = torch.tensor([1.0 - 2.0 ** -24, 0.5])
+        u2[10] = torch.tensor([0.5, 1.0 - 2.0 ** -24])
+        wi[11] = n[11]                                  # along n: GGX's near-normal branch
+    lobes = {"type": t, "flags": flags, "n": n_lobes, "weight": weight, "param": param,
+             "present": tuple(present if present is not None else sorted(set(types))),
+             "max_lobes": slots}
+    on = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in lobes.items()}
+    return on, n.to(dev), wi.to(dev), wo.to(dev), u2.to(dev)
+
+
+def _strided(lobes, n, wi, wo, u2):
+    """The same values as column blocks of wider tensors."""
+    def block(x, extra=3):
+        wide = torch.full(x.shape[:-1] + (x.shape[-1] + 2 * extra,), float("nan")
+                          if x.is_floating_point() else -7, dtype=x.dtype, device=x.device)
+        wide[..., extra:extra + x.shape[-1]] = x
+        return wide[..., extra:extra + x.shape[-1]]
+
+    out = dict(lobes)
+    for k in ("type", "flags"):
+        out[k] = block(lobes[k])
+    out["weight"] = block(lobes["weight"])
+    out["param"] = block(lobes["param"])
+    out["n"] = block(lobes["n"][:, None])[:, 0]
+    return out, block(n), block(wi), block(wo), block(u2)
+
+
+def _diff(a, b):
+    """Lanes where a and b differ in their bits (two NaNs agree)."""
+    if a.is_floating_point():
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    else:
+        same = a == b
+    same = same.reshape(same.shape[0], -1).all(dim=1)
+    return (~same).nonzero().flatten().tolist()
+
+
+def _assert_same(got, want, what, lobes):
+    for name, a, b in zip(("f", "wo", "pdf", "flags"), got, want):
+        bad = _diff(a, b)
+        if bad:
+            i = bad[0]
+            types = lobes["type"][i].tolist()
+            raise AssertionError(
+                f"{what}: {name} differs on {len(bad)} of {a.shape[0]} lanes; lane {i} "
+                f"(types {types}, n_lobes {int(lobes['n'][i])}): kernel {a[i].tolist()} "
+                f"eager {b[i].tolist()}")
+
+
+def _eager(entry, lobes, args, sorted_ok):
+    fn = {"bsdf_f": bsdf._bsdf_f_eager, "bsdf_pdf": bsdf._bsdf_pdf_eager,
+          "bsdf_sample": bsdf._bsdf_sample_eager}[entry]
+    out = fn(dict(lobes, sorted_ok=sorted_ok), *args)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _kernel(entry, lobes, args):
+    out = getattr(kernel, entry)(lobes, *args)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _check_all(lobes, n, wi, wo, u2, what):
+    for entry in ("bsdf_f", "bsdf_pdf", "bsdf_sample"):
+        args = (n, wi, u2) if entry == "bsdf_sample" else (n, wi, wo)
+        got = _kernel(entry, lobes, args)
+        for sorted_ok in (False, True):
+            _assert_same(got, _eager(entry, lobes, args, sorted_ok),
+                         f"{what} {entry} sorted_ok={sorted_ok}", lobes)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("slots", [1, 2, 8])
+@pytest.mark.parametrize("lobe_type", TYPES)
+def test_each_type_alone(card, lobe_type, slots):
+    case = _case(100 * lobe_type + slots, LANES, slots, (lobe_type,), card)
+    _check_all(*case, f"type {lobe_type} x {slots} slots")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("slots", [1, 2, 3, 5, 8])
+def test_all_types_mixed(card, slots):
+    case = _case(7 + slots, LANES, slots, TYPES, card)
+    _check_all(*case, f"mixed x {slots} slots")
+
+
+@pytest.mark.card
+def test_absent_types_evaluate_to_zero(card):
+    """Lanes whose type the scene does not list as present read zeros,
+    as in both eager dispatches."""
+    case = _case(31, LANES, 2, TYPES, card, present=(1, 3, 5, 6))
+    _check_all(*case, "present (1, 3, 5, 6)")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("slots", [1, 2, 8])
+def test_strided_views(card, slots):
+    lobes, n, wi, wo, u2 = _strided(*_case(41 + slots, LANES, slots, TYPES, card))
+    assert not lobes["type"].is_contiguous() and not lobes["weight"].is_contiguous()
+    assert not n.is_contiguous() and not u2.is_contiguous()
+    _check_all(lobes, n, wi, wo, u2, f"strided x {slots} slots")
+
+
+@pytest.mark.card
+def test_path_shapes_and_small_batches(card):
+    """The integrator's own shapes (few lanes, one lane) and the
+    benchmark scenes' slot counts."""
+    for lanes, slots in ((1, 1), (3, 2), (257, 2), (131072, 2), (65536, 1)):
+        _check_all(*_case(lanes + slots, lanes, slots, TYPES, card), f"{lanes} lanes")
+
+
+@pytest.mark.card
+def test_twice_bit_equal_and_counted(card):
+    lobes, n, wi, wo, u2 = _case(53, LANES, 2, TYPES, card)
+    n0, k0 = dict(bsdf.LAUNCHES), dict(kernel.LAUNCHES)
+    with torch.no_grad():
+        a = (bsdf.bsdf_f(lobes, n, wi, wo), bsdf.bsdf_pdf(lobes, n, wi, wo),
+             *bsdf.bsdf_sample(lobes, n, wi, u2))
+        b = (bsdf.bsdf_f(lobes, n, wi, wo), bsdf.bsdf_pdf(lobes, n, wi, wo),
+             *bsdf.bsdf_sample(lobes, n, wi, u2))
+    torch.cuda.synchronize()
+    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 6, "bsdf_eager": 0}
+    assert {k: kernel.LAUNCHES[k] - k0[k] for k in k0} == {"bsdf_eval": 4, "bsdf_sample": 2}
+    for x, y in zip(a, b):
+        assert not _diff(x, y)
+
+
+@pytest.mark.card
+def test_grad_inputs_stay_eager(card):
+    """A call autograd has to record runs the eager code, on the card too."""
+    lobes, n, wi, wo, u2 = _case(59, 512, 2, TYPES, card)
+    lobes["weight"] = lobes["weight"].clone().requires_grad_()
+    n0 = dict(bsdf.LAUNCHES)
+    bsdf.bsdf_f(lobes, n, wi, wo).sum().backward()
+    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 0, "bsdf_eager": 1}
+    assert lobes["weight"].grad is not None
+
+
+@pytest.mark.card
+def test_refusals(card):
+    """What the wrappers refuse raises before a launch, and is not
+    counted."""
+    lobes, n, wi, wo, u2 = _case(61, 64, 2, TYPES, card)
+    k0 = dict(kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="float32"):
+        kernel.bsdf_f(lobes, n.double(), wi, wo)
+    with pytest.raises(ValueError, match="int64"):
+        kernel.bsdf_f(dict(lobes, type=lobes["type"].int()), n, wi, wo)
+    with pytest.raises(ValueError, match="slots"):
+        kernel.bsdf_pdf(dict(lobes, max_lobes=9), n, wi, wo)
+    with pytest.raises(ValueError, match="shape"):
+        kernel.bsdf_sample(lobes, n, wi, u2[:, :1])
+    assert dict(kernel.LAUNCHES) == k0

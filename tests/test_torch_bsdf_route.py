@@ -1,0 +1,160 @@
+"""The lobe container's route (bsdf/bsdf.py): which calls take the CUDA
+kernels of bsdf/kernel.py and which the eager lobe code, how each is
+counted in ``bsdf.LAUNCHES``, and the ``bsdf.kernel`` / ``bsdf.eager``
+spans. CPU tensors take the eager code; a call that autograd has to
+record takes it on the card too. There is no card here, so a test that
+needs a call to look like the card's hands over a normal that says it is
+a CUDA tensor (``_card_typed``) and puts a recorder (or a trap) in place
+of the kernel module's handles: a call that reaches a trap is a wrong
+route."""
+import pytest
+import torch
+
+from phosphorus_mk2_tpu_torch.bsdf import bsdf, kernel
+from phosphorus_mk2_tpu_torch.core.material import LOBE_FLAGS
+from phosphorus_mk2_tpu_torch.utils import profiling
+
+ENTRIES = ("bsdf_f", "bsdf_pdf", "bsdf_sample")
+# each call's inputs that may require grad
+GRAD_INPUTS = [(e, x) for e in ENTRIES for x in
+               ("n", "wi", "u2" if e == "bsdf_sample" else "wo", "weight", "param")]
+
+
+def _case(seed=0, lanes=64, slots=2):
+    g = torch.Generator().manual_seed(seed)
+    types = torch.tensor(sorted(LOBE_FLAGS))[torch.randint(0, len(LOBE_FLAGS), (lanes, slots),
+                                                           generator=g)]
+    flags = torch.tensor([LOBE_FLAGS.get(k, 0) for k in range(max(LOBE_FLAGS) + 1)])[types]
+    lobes = {"type": types, "flags": flags,
+             "n": torch.randint(0, slots + 1, (lanes,), generator=g),
+             "weight": torch.rand((lanes, slots, 3), generator=g),
+             "param": torch.rand((lanes, slots, 6), generator=g) * 0.9 + 0.05,
+             "present": tuple(sorted(LOBE_FLAGS)), "max_lobes": slots}
+
+    def unit():
+        x = torch.randn((lanes, 3), generator=g)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    return lobes, {"n": unit(), "wi": unit(), "wo": unit(),
+                   "u2": torch.rand((lanes, 2), generator=g)}
+
+
+class _CardTyped(torch.Tensor):
+    """A CPU tensor whose ``is_cuda`` reads True; what is computed from it
+    is a plain tensor."""
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _card_typed(t):
+    t["n"] = t["n"].as_subclass(_CardTyped)
+    return t
+
+
+def _call(entry, lobes, t):
+    last = t["u2"] if entry == "bsdf_sample" else t["wo"]
+    return getattr(bsdf, entry)(lobes, t["n"], t["wi"], last)
+
+
+def _trap(monkeypatch):
+    def trap(*args):
+        raise AssertionError("the kernel route was taken")
+
+    for entry in ENTRIES:
+        monkeypatch.setattr(kernel, entry, trap)
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_cpu_calls_take_the_eager_code(monkeypatch, entry):
+    _trap(monkeypatch)
+    lobes, t = _case()
+    n0 = dict(bsdf.LAUNCHES)
+    _call(entry, lobes, t)
+    with torch.no_grad():
+        _call(entry, lobes, t)
+    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 0, "bsdf_eager": 2}
+
+
+@pytest.mark.parametrize("entry,grad_input", GRAD_INPUTS)
+def test_inputs_that_require_grad_stay_eager_on_the_card(monkeypatch, entry, grad_input):
+    _trap(monkeypatch)
+    lobes, t = _case(seed=1)
+    if grad_input in ("weight", "param"):
+        lobes[grad_input] = lobes[grad_input].clone().requires_grad_()
+    else:
+        t[grad_input] = t[grad_input].clone().requires_grad_()
+    _card_typed(t)
+    assert t["n"].is_cuda and {**lobes, **t}[grad_input].requires_grad
+    n0 = dict(bsdf.LAUNCHES)
+    _call(entry, lobes, t)
+    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 0, "bsdf_eager": 1}
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_card_calls_without_autograd_take_the_kernel(monkeypatch, entry):
+    """No input requires grad, or grad mode is off: the kernel's handle
+    gets the call's own arguments, once."""
+    seen = []
+    monkeypatch.setattr(kernel, entry, lambda *args: seen.append(args) or "from the kernel")
+    lobes, t = _case(seed=2)
+    _card_typed(t)
+    n0 = dict(bsdf.LAUNCHES)
+    assert _call(entry, lobes, t) == "from the kernel"
+    lobes["weight"] = lobes["weight"].clone().requires_grad_()
+    with torch.no_grad():
+        assert _call(entry, lobes, t) == "from the kernel"
+    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 2, "bsdf_eager": 0}
+    last = t["u2"] if entry == "bsdf_sample" else t["wo"]
+    want = (id(lobes), id(t["n"]), id(t["wi"]), id(last))
+    assert [tuple(map(id, a)) for a in seen] == [want] * 2
+
+
+def _spans(names):
+    return [s for s in profiling.RECORDER.read()["spans"] if s.name in names]
+
+
+def test_spans_only_under_a_profiler_session(monkeypatch):
+    lobes, t = _case(seed=3, lanes=4096, slots=1)
+    lobes["present"] = (1, 2, 5, 7)  # more than two types: the sorted dispatch's gate opens
+    lobes["type"] = torch.tensor([1, 2, 5, 7]).repeat(1024)[:, None]
+    lobes["flags"] = torch.tensor([LOBE_FLAGS[k] for k in (1, 2, 5, 7)]).repeat(1024)[:, None]
+    names = ("bsdf.kernel", "bsdf.eager", "bsdf.sorted_dispatch")
+    profiling.RECORDER.clear()
+    bsdf.bsdf_f(lobes, t["n"], t["wi"], t["wo"])
+    assert _spans(names) == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        bsdf.bsdf_f(lobes, t["n"], t["wi"], t["wo"])
+        monkeypatch.setattr(kernel, "bsdf_pdf", lambda *args: None)
+        bsdf.bsdf_pdf(lobes, _card_typed(dict(t))["n"], t["wi"], t["wo"])
+    got = _spans(names)
+    eager = [s for s in got if s.name == "bsdf.eager"]
+    inner = [s for s in got if s.name == "bsdf.sorted_dispatch"]
+    assert [s.name for s in got if s.name != "bsdf.sorted_dispatch"] == ["bsdf.eager",
+                                                                          "bsdf.kernel"]
+    assert len(inner) == 1 and inner[0].parent == eager[0].index
+    profiling.RECORDER.clear()
+
+
+def test_launches_registered_with_the_recorder():
+    counters = profiling.RECORDER.read()["counters"]
+    assert counters["bsdf.LAUNCHES"] is bsdf.LAUNCHES
+    assert counters["bsdf.kernel.LAUNCHES"] is kernel.LAUNCHES
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_a_call_that_raises_is_not_counted(monkeypatch, entry):
+    """A kernel call refused by its wrapper counts neither its route nor a
+    launch."""
+    def refuse(*args):
+        raise ValueError("refused")
+
+    monkeypatch.setattr(kernel, entry, refuse)
+    lobes, t = _case(seed=4)
+    _card_typed(t)
+    n0, k0 = dict(bsdf.LAUNCHES), dict(kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="refused"):
+        _call(entry, lobes, t)
+    assert dict(bsdf.LAUNCHES) == n0 and dict(kernel.LAUNCHES) == k0

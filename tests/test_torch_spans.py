@@ -29,10 +29,12 @@ torch.set_num_threads(1)
 RES = 8
 STAGES = {"integrator.trace", "integrator.hit_rows", "integrator.emission", "integrator.nee",
           "integrator.shadow", "integrator.bsdf_sample"}
+# the lobe container's calls, on their CPU route (bsdf/bsdf.py)
+BSDF = {"bsdf.eager"}
 PASS = {"renderer.pass", "renderer.chunk", "renderer.film_gather", "integrator.tables",
-        "integrator.sample"} | STAGES
+        "integrator.sample"} | STAGES | BSDF
 STEP = {"optim.step", "optim.forward", "optim.backward", "optim.loss_readback",
-        "optim.update", "integrator.tables", "integrator.sample"} | STAGES
+        "optim.update", "integrator.tables", "integrator.sample"} | STAGES | BSDF
 
 
 @pytest.fixture(autouse=True)

@@ -70,8 +70,10 @@ def test_the_spans_nest_in_a_bounce():
     for t in traces:  # the three stages in order, once each
         kids = sorted((s for s in stages if s.parent == t.index), key=lambda s: s.start)
         assert [s.name for s in kids] == ["tracer.front", "tracer.waves", "tracer.fallback"]
+    # the dispatch inside its container call's span, inside the bounce's stage
     dispatch = [s for s in spans if s.name == "bsdf.sorted_dispatch"]
-    parents = {by[s.parent].name for s in dispatch}
+    assert dispatch and {by[s.parent].name for s in dispatch} == {"bsdf.eager"}
+    parents = {by[by[s.parent].parent].name for s in dispatch}
     assert "integrator.bsdf_sample" in parents
     assert parents <= {"integrator.bsdf_sample", "integrator.nee"}
 
