@@ -145,11 +145,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      bsdf_f and bsdf_pdf, bsdf_sample) on the inputs of the main path's
      own calls, kept from one pass of multi_bsdf_scene 512x512 and of
      cornell_box 256x256 (131,072 hits x 2 slots, 65,536 x 1): bit-equal
-     to the eager lobe code with the sorted and with the dense dispatch,
-     twice bit-equal, counted once a call, timed beside the bytes bound
-     and the eager sorted dispatch;
+     to the eager lobe code (the dense dispatch), twice bit-equal,
+     counted once a call, timed beside the bytes bound and the eager
+     code;
   8. gradients and inverse rendering (integrator/path.py render_pass with
-     gradients, trainable=, sorted_dispatch=; optim.InverseRenderer),
+     gradients, trainable=; optim.InverseRenderer),
      every tracer call primal: (1) gradients of color.sum() with respect
      to emission, lobe_weight and vertices with the kernels and with
      their plain versions, both on the card: cornell_box 64x64 4 spp
@@ -165,14 +165,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      equal to unscoped within 1e-4 (--profile: the forward and the
      backward of a 4-spp gradient step traced); (4) bench.py's
      bmw_fwd_bwd shape on the full-size terrain_scene (1 << 16 pixels,
-     2 spp, depth 3, use_bvh=True, sorted_dispatch=False): gradients
+     2 spp, depth 3, use_bvh=True): gradients
      finite, front and wave kernels launched; (5) multi_bsdf_scene
-     512x512 depth 9 2 spp, no-grad, on the eager lobe code with the
-     sorted and the dense dispatch and on the kernel route: the three
-     films bit-equal, each timed; gradients (eager) with the sorted and
-     the dense dispatch at 256x256 depth 2 within 2e-4; (6) InverseRenderer recovering cornell_box's lamp from 0.3x at
-     256x256 (log emission, unbiased loss, 8 spp, depth 3), the criteria
-     of tests/test_optim.py, then a checkpoint resumed in a new
+     512x512 depth 9 2 spp, no-grad, on the eager lobe code and on the
+     kernel route: the two films bit-equal, each timed; gradients (eager)
+     at 256x256 depth 2, finite and not all zero; (6) InverseRenderer
+     recovering cornell_box's lamp from 0.3x at 256x256 (log emission,
+     unbiased loss, 8 spp, depth 3), the criteria of tests/test_optim.py,
+     then a checkpoint resumed in a new
      InverseRenderer equal to the uninterrupted run within 1e-6.
      The launches of the timed calls of (3)-(6) count in the kernels
      line, each counted from 0 just before the call and read just after
@@ -301,7 +301,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      bytes, with --profile the device kernels a bounce-step
      (torch.profiler); (b) bench
      bmw_fwd_bwd's gradient step (the first 1 << 16 pixels, 2 spp, depth
-     3, sorted_dispatch=False) on the full-size terrain and the BMW under
+     3) on the full-size terrain and the BMW under
      both branches, in turns: gradients of (emission, lobe_weight,
      vertices) within 1e-4 of each field's max |g|, seconds a step, peak
      memory after a reset; with --profile the backward's busy time and
@@ -2313,15 +2313,15 @@ def bsdf_timing(bk, pt, scenes, launches):
     the BVH; depth 9: 131,072 hits x 2 slots a chunk, and depth 2: 65,536
     hits x 1 slot),
     each entry's first and last call of the pass kept as it was handed
-    over. On each: the kernel bit-equal to the eager code with the
-    type-sorted and with the dense dispatch (two NaNs agree), twice
-    bit-equal, counted once a call; ms a call (CUDA events, the launch
-    included) beside the bytes bound (each slot's type, flags, weight and
-    three parameters, the count, the normal, the directions and the
-    uniforms read once, the outputs written once, at 3.35 TB/s) and the
-    eager sorted dispatch's ms as plain_ms. Returns the kernels line's
-    rows, bsdf_eval and bsdf_sample at multi_bsdf_scene's first calls,
-    with the other calls' times beside them."""
+    over. On each: the kernel bit-equal to the eager code's dense dispatch
+    (two NaNs agree), twice bit-equal, counted once a call; ms a call
+    (CUDA events, the launch included) beside the bytes bound (each
+    slot's type, flags, weight and three parameters, the count, the
+    normal, the directions and the uniforms read once, the outputs
+    written once, at 3.35 TB/s) and the eager code's ms as plain_ms.
+    Returns the kernels line's rows, bsdf_eval and bsdf_sample at
+    multi_bsdf_scene's first calls, with the other calls' times beside
+    them."""
     from phosphorus_mk2_tpu_torch.bsdf import bsdf
 
     entries = {"bsdf_f": ("bsdf_eval", bsdf._bsdf_f_eager, 12),
@@ -2367,27 +2367,24 @@ def bsdf_timing(bk, pt, scenes, launches):
             torch.cuda.synchronize()
             counted = bk.LAUNCHES[kname] - k0
             check(dict(bsdf.LAUNCHES) == n0, "bsdf: a direct kernel call counted a route")
-            want = {}
-            for sd in (True, False):
-                got = eager(dict(lobes, sorted_ok=sd), *args[1:])
-                want[sd] = tuple(got) if isinstance(got, tuple) else (got,)
+            want = eager(*args)
+            want = tuple(want) if isinstance(want, tuple) else (want,)
             differ = {"twice": sum(map(lanes_differ, a, b)),
-                      "sorted": sum(map(lanes_differ, a, want[True])),
-                      "dense": sum(map(lanes_differ, a, want[False]))}
+                      "dense": sum(map(lanes_differ, a, want))}
             in_b = slots * (8 + 8 + 12 + 12) + 8 + 12 + 12 + (8 if entry == "bsdf_sample" else 12)
             row = {"name": kname, "route": "cuda",
                    "source": "phosphorus_mk2_tpu_torch/csrc/bsdf.cu",
                    "replaces": None, "launches": launches[kname],
                    "max_abs_err": 0.0 if not any(differ.values()) else None,
                    "ms": cuda_ms(lambda: real[entry](*args), 200),
-                   "plain_ms": cuda_ms(lambda: eager(dict(lobes, sorted_ok=True), *args[1:]), 5),
+                   "plain_ms": cuda_ms(lambda: eager(*args), 5),
                    "bound_ms": lanes * (in_b + out_b) / H100_BYTES * 1e3, "bound_by": "bytes",
                    "library_ms": None, "parity": not any(differ.values()),
                    "shape": f"{lanes} hits x {slots} slots ({label}, {entry}, {which} call)",
                    "entry": entry, "lanes_differ": differ, "counted": counted}
             print(f"{kname} ({entry}) {row['shape']}: lanes differing {differ}, counted "
                   f"{counted} for 2 calls; {row['ms']:.5f} ms/launch, bound "
-                  f"{row['bound_ms']:.5f} ms (bytes), eager sorted {row['plain_ms']:.4f} ms",
+                  f"{row['bound_ms']:.5f} ms (bytes), eager {row['plain_ms']:.4f} ms",
                   flush=True)
             check(counted == 2 and row["parity"], f"bsdf: {row}")
             out.append(row)
@@ -2619,7 +2616,7 @@ def full_width_grads(path, scenes, dev, profile, count):
 
 def bvh_grads(path, ct, terrain, terrain_data, dev, count):
     """8.4: bench.py's bmw_fwd_bwd shape (a 1 << 16-pixel wavefront, 2 spp,
-    depth 3, sorted_dispatch=False, trainable=None) on the full-size
+    depth 3, trainable=None) on the full-size
     terrain_scene 256x256 through the cluster tracer; the timed call is
     counted, the warm-up before it not."""
     from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
@@ -2633,7 +2630,7 @@ def bvh_grads(path, ct, terrain, terrain_data, dev, count):
     for k in ct.STATS:
         ct.STATS[k] = 0
     ((_, g), secs, mem), counts = count(lambda: timed(lambda: grad_render(
-        path, terrain_data, cam, w, h, spp, depth, tracer, GRAD_FIELDS, sorted_dispatch=False)))
+        path, terrain_data, cam, w, h, spp, depth, tracer, GRAD_FIELDS)))
     for f in GRAD_FIELDS:
         check(bool(torch.isfinite(g[f]).all()), f"terrain: the {f} gradient is not finite")
     check(float(g["emission"].abs().max()) > 0, "terrain: the emission gradient is all zero")
@@ -2650,16 +2647,13 @@ def bvh_grads(path, ct, terrain, terrain_data, dev, count):
             "launches": counts, "traced": s}
 
 
-def sorted_dispatch_card(path, scenes, dev, count):
+def lobe_routes_card(path, scenes, dev, count):
     """8.5: multi_bsdf_scene 512x512, depth 9, 2 spp, brute, no-grad
-    forward on the eager lobe code with the sorted and with the dense
-    dispatch, and on the kernel route (csrc/bsdf.cu): the three films
-    bit-equal; timed in turns (eager sorted, eager dense, kernel, kernel,
-    eager dense, eager sorted). Then gradients (the eager code: autograd
-    records them) at 256x256, depth 2, with the sorted and the dense
-    dispatch within 2e-4 of each field's max |g| (tests/test_grad.py's
-    bound). The six timed forwards are counted; the warm-ups and the
-    gradient comparison not."""
+    forward on the eager lobe code and on the kernel route (csrc/bsdf.cu):
+    the two films bit-equal; timed in turns (eager, kernel, kernel,
+    eager). Then gradients (the eager code: autograd records them) at
+    256x256, depth 2: finite and not all zero. The four timed forwards
+    are counted; the warm-ups and the gradient render not."""
     from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
 
     out = {}
@@ -2670,51 +2664,48 @@ def sorted_dispatch_card(path, scenes, dev, count):
         cam = camera_to_params(scene.camera, dev)
         tracer = path.make_tracer(data, use_bvh=False)
         if w == 512:
-            def fwd(sd):
+            def fwd():
                 with torch.no_grad():
                     return path.render_pass(data, cam, 0, 0, 2, width=w, height=h, max_depth=9,
-                                            tracer=tracer, sorted_dispatch=sd)["color"]
+                                            tracer=tracer)["color"]
 
-            def eager(sd):
+            def eager():
                 with eager_bsdf():
-                    return fwd(sd)
+                    return fwd()
 
-            routes = {"eager sorted": lambda: eager(True), "eager dense": lambda: eager(False),
-                      "kernel": lambda: fwd(True)}
+            routes = {"eager": eager, "kernel": fwd}
             for fn in routes.values():
                 fn()  # warm-up
             films, secs, runs = {}, {k: [] for k in routes}, []
-            for route in ("eager sorted", "eager dense", "kernel", "kernel", "eager dense",
-                          "eager sorted"):
+            for route in ("eager", "kernel", "kernel", "eager"):
                 (films[route], t, _), n = count(lambda: timed(routes[route]))
                 secs[route].append(t)
                 runs.append({"route": route, "launches": n})
                 k = n.get("bsdf_eval", 0) + n.get("bsdf_sample", 0)
                 check((k > 0) == (route == "kernel"),
                       f"multi_bsdf_scene: the {route} forward launched {k} bsdf kernels")
-            for a, b in (("eager sorted", "eager dense"), ("kernel", "eager sorted"),
-                         ("kernel", "eager dense")):
-                check(torch.equal(films[a], films[b]),
-                      f"multi_bsdf_scene: the {a} and {b} films differ by "
-                      f"{float((films[a] - films[b]).abs().max())}")
+            check(torch.equal(films["kernel"], films["eager"]),
+                  f"multi_bsdf_scene: the kernel and eager films differ by "
+                  f"{float((films['kernel'] - films['eager']).abs().max())}")
             rays = w * h * 2 * 9 * 2
-            out = {"rays": rays, **{f"{k.replace(' ', '_')}_s": v for k, v in secs.items()},
-                   **{f"{k.replace(' ', '_')}_rays_per_s": [rays / t for t in v]
-                      for k, v in secs.items()}, "launches": runs}
+            out = {"rays": rays, **{f"{k}_s": v for k, v in secs.items()},
+                   **{f"{k}_rays_per_s": [rays / t for t in v] for k, v in secs.items()},
+                   "launches": runs}
             print(f"multi_bsdf_scene {w}x{h} 2 spp depth 9 brute no-grad forward, Mrays/s in "
                   "turns: " + "; ".join(f"{k} " + ", ".join(f"{rays / t / 1e6:.4f}" for t in v)
                                         for k, v in secs.items())
-                  + "; the three films bit-equal", flush=True)
+                  + "; the two films bit-equal", flush=True)
         else:
             names = ("emission", "lobe_weight", "lobe_param")
-            (_, gs), (_, gd) = (grad_render(path, data, cam, w, h, 2, 2, tracer, names,
-                                            sorted_dispatch=sd) for sd in (True, False))
-            errs = check_grads("multi_bsdf_scene sorted vs dense gradients", gs, gd, 2e-4)
+            _, g = grad_render(path, data, cam, w, h, 2, 2, tracer, names)
             for f in names:
-                check(float(gd[f].abs().max()) > 0, f"multi_bsdf_scene: the {f} gradient is zero")
-            out["grad_sorted_vs_dense"] = errs
-            print(f"multi_bsdf_scene {w}x{h} 2 spp depth 2, grad of color.sum(): sorted vs dense "
-                  + ", ".join(f"{f} {e:.3g}" for f, e in errs.items()), flush=True)
+                check(bool(torch.isfinite(g[f]).all()), f"multi_bsdf_scene: the {f} gradient "
+                      "is not finite")
+                check(float(g[f].abs().max()) > 0, f"multi_bsdf_scene: the {f} gradient is zero")
+            out["grad_max_abs"] = {f: float(g[f].abs().max()) for f in names}
+            print(f"multi_bsdf_scene {w}x{h} 2 spp depth 2, grad of color.sum(): max |g| "
+                  + ", ".join(f"{f} {v:.6g}" for f, v in out["grad_max_abs"].items()),
+                  flush=True)
     return out
 
 
@@ -2808,7 +2799,7 @@ def gradients_phase(pt, scenes, ct, mt, front, wave, terrain, terrain_data, dev,
     summary = {
         "full_width": full_width_grads(path, scenes, dev, profile, count),
         "bvh": bvh_grads(path, ct, terrain, terrain_data, dev, count),
-        "sorted_dispatch": sorted_dispatch_card(path, scenes, dev, count),
+        "lobe_routes": lobe_routes_card(path, scenes, dev, count),
         "inverse_rendering": inverse_rendering(pt, scenes, dev, count),
     }
     for k in ("mt_closest", "mt_anyhit", "front_full", "wave_mt"):
@@ -4208,7 +4199,7 @@ def options_phase(pt, ct, mt, front, wave, bench, scenes, dev, smi):
         ("cornell_box 256x256 16 spp depth 4", box, box_data, False, 256 * 256, 16, 4, {}),
         # bench bmw_fwd_bwd's: the first 1 << 16 pixels, 2 spp, depth 3
         ("BMW 1 << 16 pixels 2 spp depth 3", bmw_scene, bmw_data, True, 1 << 16, 2, 3,
-         {"sorted_dispatch": False})], dev, count)
+         {})], dev, count)
     for k in OPTION_KERNELS:
         check(totals[k] > 0, f"phase 13: {k} was not launched")
     res["launches_counted"] = totals
@@ -4361,7 +4352,7 @@ def backward_profile(graph):
 
 def shading_gradients(path, ct, cases, dev, count, profile):
     """14b: bench bmw_fwd_bwd's gradient step (the first 1 << 16 pixels, 2
-    spp, depth 3, sorted_dispatch=False; d color.sum() / d (emission,
+    spp, depth 3; d color.sum() / d (emission,
     lobe_weight, vertices)) under both branches, in turns: the gradients
     within 1e-4 of each field's max |g| (phase 8's bound), seconds a step,
     peak memory after a reset, launches; under --profile the backward's
@@ -4384,8 +4375,7 @@ def shading_gradients(path, ct, cases, dev, count, profile):
         def graph(spp=spp):
             leaves = {f: getattr(data, f).detach().clone().requires_grad_() for f in GRAD_FIELDS}
             sums = path.render_pass_pixels(dataclasses.replace(data, **leaves), cam, 0, 0, spp,
-                                           px, py, max_depth=depth, tracer=tracer,
-                                           sorted_dispatch=False)
+                                           px, py, max_depth=depth, tracer=tracer)
             return sums["color"].sum(), leaves
 
         def step(branch, spp=spp):

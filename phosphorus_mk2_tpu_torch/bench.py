@@ -182,8 +182,7 @@ def _cornell(dev, width, height):
     return data, cam, tracer
 
 
-def grad_step(data, cam, px, py, spp, depth, tracer, fields, trainable=None,
-              sorted_dispatch=True):
+def grad_step(data, cam, px, py, spp, depth, tracer, fields, trainable=None):
     """A function of no arguments returning the gradients of the colour
     sum of an spp-sample render of pixels px, py with respect to
     ``fields`` (leaf copies of the scene's)."""
@@ -195,7 +194,6 @@ def grad_step(data, cam, px, py, spp, depth, tracer, fields, trainable=None,
         out = render_pass_pixels(
             dataclasses.replace(data, **leaves), cam, 0, 0, spp, px, py,
             max_depth=depth, tracer=tracer, trainable=trainable,
-            sorted_dispatch=sorted_dispatch,
         )
         return torch.autograd.grad(out["color"].sum(), list(leaves.values()))
 
@@ -500,8 +498,7 @@ def _bmw_grad(device, bmw, metric, fields, trainable, n, spp, depth, cpu_pixels,
     def step(d, sel):
         return grad_step(d, camera_to_params(scene.camera, d.device),
                          px[sel].to(d.device), py[sel].to(d.device), spp, depth,
-                         make_tracer(d, use_bvh=True), fields, trainable,
-                         sorted_dispatch=False)
+                         make_tracer(d, use_bvh=True), fields, trainable)
 
     peak_reset(dev)
     t, grads = timed(step(data, slice(None)), dev, reps)
@@ -535,8 +532,8 @@ def bmw_fwd_bwd(device="cuda", n=N_BMW, spp=SPP_BMW, depth=DEPTH_BMW,
     return _bmw_grad(
         device, bmw, "bmw_fwd_bwd_rays_per_sec", FIELDS_ALL, None, n, spp, depth, cpu_pixels, reps,
         "one gradient of a pixel loss (emission, lobe_weight, vertices; trainable=None) "
-        "through the cluster tracer, the first n pixels of the 512x512 frame, "
-        "sorted_dispatch=False; baseline = the same step on the host CPU over "
+        "through the cluster tracer, the first n pixels of the 512x512 frame; "
+        "baseline = the same step on the host CPU over "
         "cpu_pixels of them",
     )
 

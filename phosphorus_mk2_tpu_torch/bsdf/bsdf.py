@@ -11,11 +11,10 @@ arrays gathered from the material tables by material id. A call on
 CUDA tensors that autograd need not record (no grad mode, or no input
 that requires grad) is one launch of a kernel (bsdf/kernel.py,
 csrc/bsdf.cu). Every other call, autograd's and the CPU's, runs the
-eager lobe code: lobes dispatched densely or, under the JAX package's
-gate, by type-sorted segments (see bsdf/lobes.py). All three give the
-same values. ``LAUNCHES`` counts the calls of each route; a call is the
-span ``bsdf.kernel`` or ``bsdf.eager`` while a torch.profiler session is
-active. Textures modulate lobe weights
+eager lobe code, the lobes dispatched densely (see bsdf/lobes.py). Both
+routes give the same values. ``LAUNCHES`` counts the calls of each
+route; a call is the span ``bsdf.kernel`` or ``bsdf.eager`` while a
+torch.profiler session is active. Textures modulate lobe weights
 (``apply_textures``) and emission (``emission_at``, ``emission_from_row``,
 ``env_emission_at``); all of it is the identity for untextured scenes.
 """
@@ -24,12 +23,7 @@ from __future__ import annotations
 import torch
 
 from phosphorus_mk2_tpu_torch.bsdf import kernel
-from phosphorus_mk2_tpu_torch.bsdf.lobes import (
-    eval_lobe,
-    eval_lobe_sorted,
-    sample_lobe,
-    sample_lobe_sorted,
-)
+from phosphorus_mk2_tpu_torch.bsdf.lobes import eval_lobe, sample_lobe
 from phosphorus_mk2_tpu_torch.core.material import (
     FLAG_REFLECT,
     FLAG_SPECULAR,
@@ -354,18 +348,9 @@ def _hemisphere_match(flags_i, n, wi, wo):
     return torch.where(reflect, is_refl, is_trans)
 
 
-def _sorted_gate(lobes: dict, lanes: int) -> bool:
-    """The JAX package's gate for the type-sorted dispatch: more than two
-    lobe types in the scene, a wide enough batch, and the caller's
-    ``sorted_ok`` (default on)."""
-    present = lobes.get("present")
-    return bool(present and len(present) > 2 and lanes >= 4096
-                and lobes.get("sorted_ok", True))
-
-
 def _eval_all_slots(lobes: dict, n, wi, wo):
-    """One flattened eval_lobe over the (hit x lobe slot) axis, sorted by
-    type under ``_sorted_gate``. Returns (e, pdf) of shape (N, L)."""
+    """One flattened eval_lobe over the (hit x lobe slot) axis. Returns
+    (e, pdf) of shape (N, L)."""
     num = wi.shape[0]
     L = lobes.get("max_lobes", MAX_LOBES)
     flat_type = lobes["type"][:, :L].reshape(-1)
@@ -374,13 +359,8 @@ def _eval_all_slots(lobes: dict, n, wi, wo):
     def tile(x):
         return x[:, None, :].expand(num, L, 3).reshape(num * L, 3)
 
-    present = lobes.get("present")
-    if _sorted_gate(lobes, num * L):
-        e, pdf = eval_lobe_sorted(flat_type, flat_param, tile(n), tile(wi), tile(wo),
-                                  present)
-    else:
-        e, pdf = eval_lobe(flat_type, flat_param, tile(n), tile(wi), tile(wo),
-                           present=present)
+    e, pdf = eval_lobe(flat_type, flat_param, tile(n), tile(wi), tile(wo),
+                       present=lobes.get("present"))
     return e.reshape(num, L), pdf.reshape(num, L)
 
 
@@ -471,11 +451,8 @@ def _bsdf_sample_eager(lobes: dict, n, wi, u2):
     flags_sel = sel_slot(lobes["flags"])
 
     remapped = torch.stack([u_remap, u2[..., 1]], dim=-1)
-    present = lobes.get("present")
-    if _sorted_gate(lobes, wi.shape[0]):
-        f_s, wo, pdf = sample_lobe_sorted(type_sel, param_sel, n, wi, remapped, present)
-    else:
-        f_s, wo, pdf = sample_lobe(type_sel, param_sel, n, wi, remapped, present=present)
+    f_s, wo, pdf = sample_lobe(type_sel, param_sel, n, wi, remapped,
+                               present=lobes.get("present"))
 
     selected_valid = pdf != 0.0
     result = f_s[..., None] * weight_sel

@@ -3,17 +3,13 @@
 Counterpart of ``phosphorus_mk2_tpu/bsdf/lobes.py`` (reference
 src/bsdf/{lambert,oren_nayar,reflection,refraction,microfacet,sheen}.hpp)
 with the same y-up tangent-space math. Each lobe type's evaluation and
-sampling is written once (``EVALS``, ``SAMPLERS``), and two dispatches
-run them with the same values:
-  * dense (``eval_lobe``, ``sample_lobe``): every present type over the
-    whole wavefront, the result selected by type code;
-  * type-sorted (``eval_lobe_sorted``, ``sample_lobe_sorted``, the
-    reference's material-bucketed deferred shading): lanes sorted stably
-    by type, each type's function on its own exact segment, the inverse
-    permutation after. The JAX package runs fixed chunks with a dynamic
-    trip count and so needs a custom_vjp; here the segments are exact
-    slices (one host read of the per-type counts), plain autograd
-    differentiates them, and no lane ever runs another type's function.
+sampling is written once (``EVALS``, ``SAMPLERS``), and one dispatch
+runs them (``eval_lobe``, ``sample_lobe``): every present type over the
+whole wavefront, the result selected by type code. The JAX package also
+has a type-sorted dispatch (the reference's material-bucketed deferred
+shading); the port does not keep it: on the card the no-grad forward
+takes the ``csrc/bsdf.cu`` kernel (``bsdf/kernel.py``) and the eager
+sorted form was never faster there than the dense one.
 
 Direction conventions follow the reference call sites:
   * eval(wi, wo): wi toward the light, wo toward the viewer in NEE; the
@@ -36,7 +32,6 @@ from phosphorus_mk2_tpu_torch.core.material import (
     DIFFUSE,
     MICROFACET,
     MICROFACET_REFRACT,
-    NUM_LOBE_TYPES,
     OREN_NAYAR,
     REFLECTION,
     REFRACTION,
@@ -56,7 +51,6 @@ from phosphorus_mk2_tpu_torch.math.vec import (
     safe_pow,
     safe_sqrt,
 )
-from phosphorus_mk2_tpu_torch.utils.profiling import span
 
 INV_PI = 1.0 / math.pi
 
@@ -344,10 +338,8 @@ def oren_nayar_f(a, b, n_frame, wi, wo):
 
 # ---------------------------------------------------------------------------
 # Per-type evaluation and sampling (reference eval(), src/bsdf.cpp:29-108;
-# bsdf_t::sample, :133-224), each lobe type's arithmetic written once: the
-# dense dispatch runs every present type over the whole wavefront, the
-# type-sorted dispatch (JAX lobes.py:338-410, :646-739) each type on its
-# own lanes.
+# bsdf_t::sample, :133-224), each lobe type's arithmetic written once; the
+# dense dispatch runs every present type over the whole wavefront.
 # ---------------------------------------------------------------------------
 
 class _Lanes:
@@ -355,7 +347,7 @@ class _Lanes:
     (N, 3); wo (N, 3) to evaluate, u2 (N, 2) to sample) with the work that
     several lobe types share, each part made once, at its first use. The
     dense dispatch hands one _Lanes of the whole wavefront to every
-    present type, the sorted dispatch one of each type's segment."""
+    present type."""
 
     def __init__(self, params, n, wi, wo=None, u2=None):
         self.params, self.n, self.wi, self.wo, self.u2 = params, n, wi, wo, u2
@@ -553,50 +545,3 @@ def sample_lobe(lobe_type, params, n, wi, u2, present=None):
     return _dense_dispatch(SAMPLERS, present, lobe_type, _Lanes(params, n, wi, u2=u2),
                            (zero, torch.zeros_like(wi), zero))
 
-
-def _sorted_dispatch(fns, present, lobe_type, lanes, out_shapes):
-    """Run fns[T] on the lanes of type T only, for each present type with
-    a function: a stable sort by type, the per-type counts read once on
-    the host, each type's function on a _Lanes of its exact segment, and
-    the results put back in lane order. Lanes of other types get zeros.
-    lanes: the _Lanes fields by name; out_shapes: the trailing shape of
-    each output. The call is the span ``bsdf.sorted_dispatch`` while a
-    torch.profiler session is active, the counts' host read included."""
-    with span("bsdf.sorted_dispatch"):
-        num = lobe_type.shape[0]
-        order = torch.argsort(lobe_type, stable=True)
-        counts = torch.bincount(lobe_type, minlength=NUM_LOBE_TYPES).tolist()
-        lanes_s = {k: v[order] for k, v in lanes.items()}
-        run = set(present) & set(fns)
-        ref = lanes["wi"]
-        pieces = [[] for _ in out_shapes]
-        off = 0
-        for T, cnt in enumerate(counts):
-            if cnt:
-                if T in run:
-                    outs = fns[T](_Lanes(**{k: v[off:off + cnt] for k, v in lanes_s.items()}))
-                else:
-                    outs = [torch.zeros((cnt, *shp), dtype=ref.dtype, device=ref.device)
-                            for shp in out_shapes]
-                for k, o in enumerate(outs):
-                    pieces[k].append(o)
-            off += cnt
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(num, dtype=order.dtype, device=order.device)
-        return tuple(torch.cat(p)[inv] if p else
-                     torch.zeros((0, *shp), dtype=ref.dtype, device=ref.device)
-                     for p, shp in zip(pieces, out_shapes))
-
-
-def eval_lobe_sorted(lobe_type, params, n, wi, wo, present):
-    """eval_lobe by type-sorted segments; the same (f, pdf)."""
-    present = present or ALL_TYPES
-    return _sorted_dispatch(EVALS, present, lobe_type,
-                            dict(params=params, n=n, wi=wi, wo=wo), ((), ()))
-
-
-def sample_lobe_sorted(lobe_type, params, n, wi, u2, present):
-    """sample_lobe by type-sorted segments; the same (f, wo, pdf)."""
-    present = present or ALL_TYPES
-    return _sorted_dispatch(SAMPLERS, present, lobe_type,
-                            dict(params=params, n=n, wi=wi, u2=u2), ((), (3,), ()))

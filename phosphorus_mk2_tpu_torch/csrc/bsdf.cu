@@ -4,11 +4,10 @@
 // No TPU kernel corresponds to it. The JAX package leaves the lobe
 // arithmetic to XLA, which fuses it into the step. The port's eager code
 // (bsdf/lobes.py) runs each lobe type's arithmetic as hundreds of
-// elementwise launches and, under the type-sorted dispatch, an argsort, a
-// host read of the per-type counts, gathers and an inverse permutation a
-// call. A no-grad render of a six-type scene at depth 9 spent most of its
-// host time there, with the card idle. This kernel replaces all of it on
-// the no-grad forward; autograd and the CPU keep the eager code.
+// elementwise launches a call. A no-grad render of a six-type scene at
+// depth 9 spent most of its host time there, with the card idle. This
+// kernel replaces all of it on the no-grad forward; autograd and the CPU
+// keep the eager code.
 //
 // What bounds it on an H100: neither bytes nor operations. A call reads
 // some 100-200 bytes a hit (the lobe slots, the normal, two directions)

@@ -332,7 +332,6 @@ def trace_sample(
     mis: bool = False,
     tables: dict | None = None,
     remat: bool = False,
-    sorted_dispatch: bool = True,
     pipeline_shadow: bool = False,
     aniso_taps: int = 0,
     trainable: tuple | None = None,
@@ -353,12 +352,10 @@ def trace_sample(
     the (e*4) NEE factor is dropped, so both strategies estimate the same
     integral. mis=False is the reference's own integrator.
 
-    sorted_dispatch: lobes by type-sorted segments where the JAX
-    package's gate takes them (bsdf/bsdf.py); the same values as the
-    dense dispatch. trainable: the SCOPABLE_FIELDS the caller will
-    differentiate with respect to; gradient flow from every other field
-    is cut (scope_scene and the column-scoped hit-row gather), and the
-    gradients of the listed fields are those of trainable=None.
+    trainable: the SCOPABLE_FIELDS the caller will differentiate with
+    respect to; gradient flow from every other field is cut (scope_scene
+    and the column-scoped hit-row gather), and the gradients of the listed
+    fields are those of trainable=None.
 
     pipeline_shadow: bounce b's NEE shadow rays ride in bounce b+1's
     closest-hit trace (one 2N-ray trace a bounce instead of a closest-hit
@@ -518,7 +515,6 @@ def trace_sample(
         if spread is not None:
             plen = plen + torch.where(hit, t_hit.detach(), 0.0)
 
-        lobes["sorted_ok"] = sorted_dispatch
         lobes = apply_fresnel(scene, lobes, hn, wo_view)
 
         # per-bounce randomness: light pick / light tri / light uv / RR
@@ -658,12 +654,12 @@ def render_pass_pixels(scene, cam_params, seed: int, sample_offset: int,
                        n_samples: int, px, py, *, max_depth: int, tracer,
                        film_strata: int = 1, mis: bool = False, spp_batch: int = 1,
                        depth_unroll: int = 1, sample_unroll: int = 1, remat: bool = False,
-                       sorted_dispatch: bool = True, pipeline_shadow: bool = False,
-                       aniso_taps: int = 0, trainable: tuple | None = None):
+                       pipeline_shadow: bool = False, aniso_taps: int = 0,
+                       trainable: tuple | None = None):
     """Accumulate ``n_samples`` samples for a pixel wavefront px, py (N,).
     Returns dict of per-pixel sums (not yet divided by spp),
     differentiable with respect to the scene's fields (see trace_sample
-    for sorted_dispatch, pipeline_shadow, remat and trainable).
+    for pipeline_shadow, remat and trainable).
 
     spp_batch: samples traced in one wavefront. sb > 1 tiles the pixels
     sb times, so that every trace runs sb * N rays, each lane with its
@@ -696,8 +692,8 @@ def render_pass_pixels(scene, cam_params, seed: int, sample_offset: int,
             r, sn, sa = trace_sample(
                 scene, cam_params, pxb, pyb, sidx, seed,
                 max_depth=max_depth, tracer=tracer, film_strata=film_strata,
-                mis=mis, tables=tables, remat=remat, sorted_dispatch=sorted_dispatch,
-                pipeline_shadow=pipeline_shadow, aniso_taps=aniso_taps, trainable=trainable,
+                mis=mis, tables=tables, remat=remat, pipeline_shadow=pipeline_shadow,
+                aniso_taps=aniso_taps, trainable=trainable,
             )
             if sb > 1:
                 r = r.reshape(sb, n, 3).sum(0)
@@ -719,16 +715,16 @@ def render_pass(scene, cam_params, seed: int, sample_offset: int, n_samples: int
                 *, width: int, height: int, max_depth: int, tracer,
                 film_strata: int = 1, mis: bool = False, spp_batch: int = 1,
                 depth_unroll: int = 1, sample_unroll: int = 1, remat: bool = False,
-                sorted_dispatch: bool = True, pipeline_shadow: bool = False,
-                aniso_taps: int = 0, trainable: tuple | None = None):
+                pipeline_shadow: bool = False, aniso_taps: int = 0,
+                trainable: tuple | None = None):
     """Accumulate ``n_samples`` samples for the full frame (the keywords:
     render_pass_pixels')."""
     px, py = frame_pixels(width, height, scene.device)
     return render_pass_pixels(
         scene, cam_params, seed, sample_offset, n_samples, px, py,
         max_depth=max_depth, tracer=tracer, film_strata=film_strata, mis=mis,
-        spp_batch=spp_batch, remat=remat, sorted_dispatch=sorted_dispatch,
-        pipeline_shadow=pipeline_shadow, aniso_taps=aniso_taps, trainable=trainable,
+        spp_batch=spp_batch, remat=remat, pipeline_shadow=pipeline_shadow,
+        aniso_taps=aniso_taps, trainable=trainable,
     )
 
 

@@ -70,7 +70,6 @@ class InverseRenderer:
         log_emission: bool = False,
         unbiased_loss: bool = False,
         views=None,
-        sorted_dispatch: bool = False,
         device="cuda",
     ):
         """fresh_rng: new sample paths each step (unbiased stochastic
@@ -86,8 +85,6 @@ class InverseRenderer:
         views: optional list of (camera, target image) pairs; step i uses
         view i % V, and ``target`` is ignored. Every view must have the
         primary camera's resolution.
-        sorted_dispatch: the type-sorted lobe dispatch in the gradient
-        renders (off by default, as in the JAX package).
         optimizer: optional callable building a ``torch.optim.Optimizer``
         from the list of parameter tensors (sorted by field name); the
         default is ``torch.optim.Adam(lr=learning_rate)``. Checkpoints
@@ -113,7 +110,6 @@ class InverseRenderer:
         self.data = data
         self._fn, _, _, n_valid = make_sharded_render(
             self.mesh, data, scene.camera, max_depth=max_depth, use_bvh=use_bvh,
-            sorted_dispatch=sorted_dispatch,
             trainable=self.trainable,  # the backward pays for this set only
         )
         self.tracer = self._fn.tracers[self.device]

@@ -232,24 +232,22 @@ def make_sharded_render(
     remat: bool = False,
     tracer_tune: dict | None = None,
     aniso_taps: int = 0,
-    sorted_dispatch: bool = True,
     trainable: tuple | None = None,
 ):
     """The render pass over ``mesh``: returns (fn, px, py, n_valid), fn a
     ``ShardedRender``. data: a SceneData (with its BVH attached when the
-    cluster tracer is wanted) on any device. spp_batch, remat,
-    sorted_dispatch and trainable are render_pass_pixels' and reach every
-    shard's pass. The JAX package's donate (buffer donation to a jitted
-    call), depth_unroll and sample_unroll (scan unrolls) are accepted and
-    ignored: the port's passes are eager PyTorch, with no jitted buffers
-    to donate and no scans to unroll."""
+    cluster tracer is wanted) on any device. spp_batch, remat and
+    trainable are render_pass_pixels' and reach every shard's pass. The
+    JAX package's donate (buffer donation to a jitted call), depth_unroll
+    and sample_unroll (scan unrolls) are accepted and ignored: the port's
+    passes are eager PyTorch, with no jitted buffers to donate and no
+    scans to unroll."""
     del donate, depth_unroll, sample_unroll
     fn = ShardedRender(
         mesh, data, camera,
         dict(use_bvh=use_bvh, use_pallas=use_pallas, tracer_tune=tracer_tune),
         dict(max_depth=max_depth, film_strata=film_strata, mis=mis, spp_batch=spp_batch,
-             remat=remat, aniso_taps=aniso_taps, sorted_dispatch=sorted_dispatch,
-             trainable=trainable),
+             remat=remat, aniso_taps=aniso_taps, trainable=trainable),
     )
     return fn, fn.px, fn.py, fn.n_valid
 

@@ -1,10 +1,10 @@
 """The lobe container's kernels (bsdf/kernel.py, csrc/bsdf.cu) on a CUDA
 card against the eager lobe code, lane by lane: ``bsdf_f``, ``bsdf_pdf``
-and ``bsdf_sample`` bit-equal to the dense and to the type-sorted
-dispatch, for each lobe type alone and all mixed, at 1, 2 and 8 slots,
-on edge lanes (grazing and back-facing directions, a degenerate frame,
-the eta = 1 passthrough, total internal reflection, no lobes, a pdf of 0)
-and on strided views; bit-equal twice; one count a call. Two NaNs count
+and ``bsdf_sample`` bit-equal to the eager dense dispatch, for each lobe
+type alone and all mixed, at 1, 2 and 8 slots, on edge lanes (grazing
+and back-facing directions, a degenerate frame, the eta = 1
+passthrough, total internal reflection, no lobes, a pdf of 0) and on
+strided views; bit-equal twice; one count a call. Two NaNs count
 as equal whatever their payloads. Needs a card: the ``card`` fixture
 skips without one (``python -m pytest tests/test_torch_bsdf_kernel_card.py``
 on the card's machine). No JAX here: the eager code is the reference."""
@@ -15,7 +15,7 @@ from phosphorus_mk2_tpu_torch.bsdf import bsdf, kernel
 from phosphorus_mk2_tpu_torch.core.material import LOBE_FLAGS
 
 TYPES = tuple(sorted(LOBE_FLAGS))  # the eight lobe types
-LANES = 8192  # wide enough for the sorted dispatch's gate
+LANES = 8192  # lanes a case
 
 
 @pytest.fixture
@@ -107,10 +107,10 @@ def _assert_same(got, want, what, lobes):
                 f"eager {b[i].tolist()}")
 
 
-def _eager(entry, lobes, args, sorted_ok):
+def _eager(entry, lobes, args):
     fn = {"bsdf_f": bsdf._bsdf_f_eager, "bsdf_pdf": bsdf._bsdf_pdf_eager,
           "bsdf_sample": bsdf._bsdf_sample_eager}[entry]
-    out = fn(dict(lobes, sorted_ok=sorted_ok), *args)
+    out = fn(lobes, *args)
     return out if isinstance(out, tuple) else (out,)
 
 
@@ -122,10 +122,8 @@ def _kernel(entry, lobes, args):
 def _check_all(lobes, n, wi, wo, u2, what):
     for entry in ("bsdf_f", "bsdf_pdf", "bsdf_sample"):
         args = (n, wi, u2) if entry == "bsdf_sample" else (n, wi, wo)
-        got = _kernel(entry, lobes, args)
-        for sorted_ok in (False, True):
-            _assert_same(got, _eager(entry, lobes, args, sorted_ok),
-                         f"{what} {entry} sorted_ok={sorted_ok}", lobes)
+        _assert_same(_kernel(entry, lobes, args), _eager(entry, lobes, args),
+                     f"{what} {entry}", lobes)
 
 
 @pytest.mark.card
@@ -146,7 +144,7 @@ def test_all_types_mixed(card, slots):
 @pytest.mark.card
 def test_absent_types_evaluate_to_zero(card):
     """Lanes whose type the scene does not list as present read zeros,
-    as in both eager dispatches."""
+    as in the eager dispatch."""
     case = _case(31, LANES, 2, TYPES, card, present=(1, 3, 5, 6))
     _check_all(*case, "present (1, 3, 5, 6)")
 

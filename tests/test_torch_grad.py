@@ -66,13 +66,12 @@ def _port_setup(ts):
     return td, t_cam_params(ts.camera, "cpu"), tpath.make_tracer(td, use_bvh=False)
 
 
-def _port_grads(td, cam, tracer, seed, fields, *, spp=2, depth=2, trainable=None,
-                sorted_dispatch=True):
+def _port_grads(td, cam, tracer, seed, fields, *, spp=2, depth=2, trainable=None):
     """d color.sum() / d fields, each field a fresh leaf."""
     leaves = {f: getattr(td, f).detach().clone().requires_grad_() for f in fields}
     out = tpath.render_pass(dataclasses.replace(td, **leaves), cam, seed, 0, spp,
                             width=RES, height=RES, max_depth=depth, tracer=tracer,
-                            sorted_dispatch=sorted_dispatch, trainable=trainable)
+                            trainable=trainable)
     out["color"].sum().backward()
     return {f: leaves[f].grad for f in fields}
 
@@ -106,7 +105,7 @@ def test_grads_match_jax(with_env, depth):
 
     ref = jax.jit(jax.grad(loss))({f: getattr(jd, f) for f in FIELDS})
     td, cam, tracer = _port_setup(ts)
-    got = _port_grads(td, cam, tracer, 0, FIELDS, depth=depth, sorted_dispatch=False)
+    got = _port_grads(td, cam, tracer, 0, FIELDS, depth=depth)
     for f in FIELDS:
         _assert_grads_close(got[f], ref[f], f)
     assert got["emission"].abs().max() > 0 and got["vertices"].abs().max() > 0

@@ -51,8 +51,7 @@ def test_bvh_grads_match_jax():
     assert tracer[0].func is cluster_traverse.intersect_clusters
     leaves = {f: getattr(td, f).detach().clone().requires_grad_() for f in NAMES}
     out = tpath.render_pass(dataclasses.replace(td, **leaves), t_cam_params(ts.camera, "cpu"),
-                            2, 0, 1, width=W, height=H, max_depth=2, tracer=tracer,
-                            sorted_dispatch=False)
+                            2, 0, 1, width=W, height=H, max_depth=2, tracer=tracer)
     out["color"].mean().backward()
     for f, r in zip(NAMES, ref):
         g, r = leaves[f].grad.numpy(), np.asarray(r)

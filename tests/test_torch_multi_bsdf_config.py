@@ -3,7 +3,7 @@ the frozen scene generator (benchmark/scenes/multi_bsdf.py) equals the
 port's ``multi_bsdf_scene`` array for array; the benchmark reference's
 sheen lobe (benchmark/reference_lobes/) equals the port's bsdf/lobes.py
 sheen in value, pdf and sample; and a 64x64, 1-spp, depth-9 render of the
-scene through the port's cluster tracer and type-sorted lobe dispatch
+scene through the port's cluster tracer and its eager lobe dispatch
 agrees with the reference copy, pixel for pixel, within the cell's
 tolerance (1e-4 relative plus 1e-6 absolute: the reference does the
 program's arithmetic in the program's order, so the two differ only where

@@ -202,8 +202,7 @@ def test_pipelined_gradient_matches_jax():
     leaves = {f: getattr(td, f).detach().clone().requires_grad_() for f in fields}
     out = tpath.render_pass(dataclasses.replace(td, **leaves), t_cam_params(ts.camera, "cpu"), 0,
                             0, 2, width=res, height=res, max_depth=2,
-                            tracer=tpath.make_tracer(td, use_bvh=False), sorted_dispatch=False,
-                            pipeline_shadow=True)
+                            tracer=tpath.make_tracer(td, use_bvh=False), pipeline_shadow=True)
     out["color"].sum().backward()
     for f in fields:
         r, g = np.asarray(ref[f]), leaves[f].grad.numpy()

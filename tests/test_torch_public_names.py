@@ -34,8 +34,12 @@ NO_COUNTERPART = {
     "accel/pallas_mt.py": "its Pallas kernels are csrc/mt.cu, bound in accel/mt.py",
     "accel/pallas_front.py": "its Pallas kernels are csrc/front.cu, bound in accel/front.py",
 }
+ONE_DISPATCH = ("the port has one eager lobe dispatch (bsdf/lobes.py, dense), and the tests "
+                "hold it against both of JAX's (tests/test_torch_lobe_dispatch.py)")
 # public names deliberately absent from the port
 ABSENT = {
+    ("bsdf/lobes.py", "eval_lobe_sorted"): ONE_DISPATCH,
+    ("bsdf/lobes.py", "sample_lobe_sorted"): ONE_DISPATCH,
     ("math/vec.py", "jax_rsqrt"): "lax.rsqrt; torch.rsqrt is its torch form (vec.normalize)",
     ("utils/profiling.py", "RenderMeter"):
         "nominal rays (N x depth x 2, whatever the paths do) that nothing calls; the "

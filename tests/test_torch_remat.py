@@ -118,7 +118,7 @@ def test_remat_gradient_matches_jax():
 
     ref = jax.jit(jax.grad(loss))({f: getattr(jd, f) for f in FIELDS})
     td, cam, tracer = _setup("sphere_in_box")
-    _, got = _grads(td, cam, tracer, sorted_dispatch=False, remat=True)
+    _, got = _grads(td, cam, tracer, remat=True)
     for f in FIELDS:
         r, g = np.asarray(ref[f]), got[f].numpy()
         assert np.isfinite(g).all() and np.abs(r).max() > 0, f

@@ -96,7 +96,8 @@ def shaded_scene(m, res=24):
 
 
 SCENES = {
-    # 32x32 at spp_batch 4: 4,096 lanes, so the type-sorted dispatch runs
+    # 32x32 at spp_batch 4: 4,096 lanes, so the JAX side takes its
+    # type-sorted dispatch, against the port's one dense dispatch
     "multi_bsdf_scene": lambda m: m.scenes.multi_bsdf_scene(32, 32),
     "shaded": shaded_scene,
 }
@@ -200,7 +201,8 @@ def test_terrain_across_the_threshold(grid, rows):
 def test_cases_reach_every_lookup():
     """The shaded scene reaches every id the hit side reads through the
     material (lobe and emission textures, a procedural, a normal map, the
-    footprint) and the multi_bsdf case the type-sorted dispatch."""
+    footprint), and the multi_bsdf case JAX's type-sorted dispatch, which
+    the port's one dense dispatch is held against."""
     ts = shaded_scene(T)
     td = ts.build(device="cpu")
     assert td.has_textures and td.has_procedural and td.has_normal_maps
@@ -267,8 +269,7 @@ def _port_grads(ts, depth, fields=FIELDS, spp=2, **kw):
     out = tpath.render_pass(dataclasses.replace(td, **leaves),
                             tcamera.camera_to_params(ts.camera, "cpu"), 0, 0, spp, width=w,
                             height=h, max_depth=depth,
-                            tracer=tpath.make_tracer(td, use_bvh=False),
-                            sorted_dispatch=False, **kw)
+                            tracer=tpath.make_tracer(td, use_bvh=False), **kw)
     out["color"].sum().backward()
     return {f: leaves[f].grad for f in fields}
 

@@ -23,6 +23,8 @@ JAX_PKG = ROOT / "phosphorus_mk2_tpu"
 # JAX modules whose Pallas kernels the port has in csrc/ (no module of the
 # same path; tests/test_torch_public_names.py holds that)
 NO_COUNTERPART = ("accel/pallas_mt.py", "accel/pallas_front.py")
+ONE_DISPATCH = ("the port has one eager lobe dispatch (bsdf/lobes.py, dense), and the tests "
+                "hold it against both of JAX's, so there is nothing to select")
 # (module, function, JAX parameter): (the port's parameter or None, why)
 RENAMED = {
     ("core/camera.py", "generate_rays", "camera_params"):
@@ -41,6 +43,9 @@ RENAMED = {
     ("integrator/path.py", "trace_sample", "depth_unroll"):
         (None, "the bounce scan's unroll: the port's bounce loop is eager Python, with no "
                "scan to unroll (Options and render_pass_pixels accept it and ignore it)"),
+    **{(module, name, "sorted_dispatch"): (None, ONE_DISPATCH) for module, name in (
+        ("integrator/path.py", "trace_sample"), ("integrator/path.py", "render_pass_pixels"),
+        ("integrator/path.py", "render_pass"), ("optim.py", "InverseRenderer.__init__"))},
 }
 
 

@@ -1,5 +1,5 @@
-"""The cluster tracer's and the sorted lobe dispatch's spans and wave_mt's
-work counters (accel/cluster_traverse.py, bsdf/lobes.py, accel/wave.py)
+"""The cluster tracer's and the lobe container's spans and wave_mt's
+work counters (accel/cluster_traverse.py, bsdf/bsdf.py, accel/wave.py)
 on the CPU: where the spans nest in a render's bounce, the shared no-op
 and no counting without a torch.profiler session, films bit-equal with
 tracing on and off, and ``wave.WORK`` equal to a plain count of the
@@ -13,7 +13,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from phosphorus_mk2_tpu_torch.accel import cluster_traverse, wave
 from phosphorus_mk2_tpu_torch.accel.bvh_builder import attach_bvh
-from phosphorus_mk2_tpu_torch.bsdf import lobes
+from phosphorus_mk2_tpu_torch.bsdf import bsdf
 from phosphorus_mk2_tpu_torch.core.material import DIFFUSE, SHEEN
 from phosphorus_mk2_tpu_torch.core.options import Options
 from phosphorus_mk2_tpu_torch.renderer import Renderer
@@ -37,8 +37,8 @@ def cpu_profile():
 
 
 def film(res=64, depth=2):
-    """A multi_bsdf render through the cluster tracer; at 64x64 one chunk
-    of 4,096 lanes opens the type-sorted dispatch."""
+    """A multi_bsdf render through the cluster tracer, its container calls
+    on the eager route (the CPU's)."""
     r = Renderer(multi_bsdf_scene(res, res),
                  Options(samples_per_pixel=1, path_depth=depth, mis=True, seed=7), device="cpu")
     out = r.render()
@@ -70,10 +70,10 @@ def test_the_spans_nest_in_a_bounce():
     for t in traces:  # the three stages in order, once each
         kids = sorted((s for s in stages if s.parent == t.index), key=lambda s: s.start)
         assert [s.name for s in kids] == ["tracer.front", "tracer.waves", "tracer.fallback"]
-    # the dispatch inside its container call's span, inside the bounce's stage
-    dispatch = [s for s in spans if s.name == "bsdf.sorted_dispatch"]
-    assert dispatch and {by[s.parent].name for s in dispatch} == {"bsdf.eager"}
-    parents = {by[by[s.parent].parent].name for s in dispatch}
+    # the container calls inside the bounce's stages
+    calls = [s for s in spans if s.name == "bsdf.eager"]
+    assert calls and not [s for s in spans if s.name == "bsdf.kernel"]
+    parents = {by[s.parent].name for s in calls}
     assert "integrator.bsdf_sample" in parents
     assert parents <= {"integrator.bsdf_sample", "integrator.nee"}
 
@@ -88,13 +88,14 @@ def test_without_a_profiler_the_spans_are_no_ops_and_nothing_is_counted(monkeypa
 
     monkeypatch.setattr(time, "time_ns", no_clock)
     assert not profiling.tracing()
-    for name in ("tracer.trace", "tracer.waves", "bsdf.sorted_dispatch"):
+    for name in ("tracer.trace", "tracer.waves", "bsdf.eager"):
         assert profiling.span(name) is profiling.NO_SPAN
     cluster_traverse.intersect_clusters(data, p, d)
     cluster_traverse.occluded_clusters(data, p, d, torch.full((p.shape[0],), 0.5))
-    types = torch.tensor([DIFFUSE, SHEEN] * 2048)
-    lobes.eval_lobe_sorted(types, torch.full((4096, 6), 0.5), d[:1].expand(4096, 3),
-                           d[1:2].expand(4096, 3), d[2:3].expand(4096, 3), (DIFFUSE, SHEEN))
+    lob = {"type": torch.tensor([[DIFFUSE, SHEEN]] * 64), "param": torch.full((64, 2, 6), 0.5),
+           "weight": torch.ones(64, 2, 3), "flags": torch.full((64, 2), 8),
+           "n": torch.full((64,), 2), "present": (DIFFUSE, SHEEN), "max_lobes": 2}
+    bsdf.bsdf_f(lob, d[:64], d[64:128], d[128:192])
     assert len(profiling.RECORDER.spans) == 0 and wave.WORK == {}
 
 
