@@ -39,9 +39,13 @@ from phosphorus_mk2_tpu_torch.parallel.sharding import (
     make_wave_mesh,
     split_frame,
 )
-from phosphorus_mk2_tpu_torch.utils.profiling import span, spanned
+from phosphorus_mk2_tpu_torch.utils.profiling import count_saved, counted, span, spanned
 
 TRAINABLE_FIELDS = ("emission", "lobe_weight", "lobe_param", "vertices", "normals")
+
+# what autograd saved in the forwards of the steps taken while a
+# torch.profiler session was active; one scope a step
+SAVED = counted("optim.SAVED", {"bytes": 0, "tensors": 0, "scopes": 0})
 
 
 class InverseRenderer:
@@ -184,7 +188,7 @@ class InverseRenderer:
             sub = self.key
         view = self._step_count % self._n_views
         self.opt.zero_grad(set_to_none=True)
-        with span("optim.forward"):
+        with span("optim.forward"), count_saved(SAVED):
             loss = self._loss(sub, view)
         with span("optim.backward"):
             loss.backward()

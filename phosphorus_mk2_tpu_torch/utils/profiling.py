@@ -21,7 +21,8 @@ thread). Designed in here:
 * counters — plain module-level dicts of ints: this module's
   ``COUNTERS`` (``kernels.builds``: the CUDA/C++ libraries compiled in
   this process) and, by reference, the ``LAUNCHES`` / ``STATS`` dicts
-  that the accel modules register with ``counted``; ``RECORDER.read()``
+  that the accel modules register with ``counted`` (and ``optim.SAVED``,
+  filled through ``count_saved`` while tracing); ``RECORDER.read()``
   gathers them with the spans;
 * StageTimer — named wall-clock stages, each a span of the same store
   kept whatever the tracing state, with device synchronization
@@ -195,6 +196,31 @@ def span(name: str, args: dict | None = None):
     if _profiler_enabled() or name.startswith(SETUP):
         return Span(name, args)
     return NO_SPAN
+
+
+def _unpack(t):
+    return t
+
+
+def count_saved(table: dict):
+    """While a torch.profiler session is active, a context whose
+    ``saved_tensors_hooks`` add each tensor autograd saves to
+    ``table["tensors"]`` and its bytes (elements x element size, as the
+    saved view holds them) to ``table["bytes"]``, the scope itself counted
+    in ``table["scopes"]``; otherwise the shared no-op context, which
+    installs no hook. A hook reads shapes only: no device operation, no
+    host sync. It keeps a detached alias of the tensor, so that a saved
+    output holds no reference to its own graph."""
+    if not _profiler_enabled():
+        return NO_SPAN
+    table["scopes"] += 1
+
+    def pack(t):
+        table["tensors"] += 1
+        table["bytes"] += t.numel() * t.element_size()
+        return t.detach()
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, _unpack)
 
 
 def spanned(name: str):
