@@ -148,6 +148,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      to the eager lobe code (the dense dispatch), twice bit-equal,
      counted once a call, timed beside the bytes bound and the eager
      code;
+     7c. the weight-gradient route's kernels at multi_bsdf.inverse's
+     262,144 hits x 2 slots (six lobe types at random): the SAVE
+     forwards timed beside the no-grad ones, bsdf_weight_grad (bsdf_f and
+     bsdf_sample) bit-equal to its plain version and to eager autograd's
+     weight gradient, timed beside its bytes bound, its plain version and
+     the eager call's forward and backward;
   8. gradients and inverse rendering (integrator/path.py render_pass with
      gradients, trainable=; optim.InverseRenderer),
      every tracer call primal: (1) gradients of color.sum() with respect
@@ -168,8 +174,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      2 spp, depth 3, use_bvh=True): gradients
      finite, front and wave kernels launched; (5) multi_bsdf_scene
      512x512 depth 9 2 spp, no-grad, on the eager lobe code and on the
-     kernel route: the two films bit-equal, each timed; gradients (eager)
-     at 256x256 depth 2, finite and not all zero; (6) InverseRenderer
+     kernel route: the two films bit-equal, each timed; gradients (the
+     eager code: the lobe parameters take gradient) at 256x256 depth 2,
+     finite and not all zero; (6) InverseRenderer
      recovering cornell_box's lamp from 0.3x at 256x256 (log emission,
      unbiased loss, 8 spp, depth 3), the criteria of tests/test_optim.py,
      then a checkpoint resumed in a new
@@ -2298,7 +2305,7 @@ def eager_bsdf():
     from phosphorus_mk2_tpu_torch.bsdf import bsdf
 
     real = bsdf._kernel_route
-    bsdf._kernel_route = lambda *args: False
+    bsdf._kernel_route = lambda *args: "eager"
     try:
         yield
     finally:
@@ -2396,6 +2403,88 @@ def bsdf_timing(bk, pt, scenes, launches):
         rows.append(head)
     print(json.dumps({"bsdf_kernels": out}), flush=True)
     return rows
+
+
+def bsdf_grad_timing(bk, launches, dev):
+    """7c: the kernel_grad route's kernels at multi_bsdf.inverse's shape,
+    262,144 hits x 2 slots, the six lobe types of multi_bsdf_scene at
+    random, a seeded incoming gradient: ms a call (CUDA events) of each
+    SAVE forward beside its no-grad instantiation; bsdf_weight_grad for
+    bsdf_f and for bsdf_sample, each from its SAVE forward's values,
+    bit-equal to weight_grad_plain of saving_plain's values and to eager
+    autograd's weight gradient (the dense dispatch), timed beside the
+    bytes bound (the gradient in, the slot values, the scale and the bits
+    read once, the gradient out written once, at 3.35 TB/s), the plain
+    version and the eager call's forward and backward. Returns the
+    kernels line's row."""
+    from phosphorus_mk2_tpu_torch.bsdf import bsdf
+    from phosphorus_mk2_tpu_torch.core.material import LOBE_FLAGS
+
+    lanes, slots, six = 262144, 2, (1, 2, 3, 4, 5, 7)
+    g = torch.Generator().manual_seed(2900)
+    types = torch.tensor(six)[torch.randint(0, len(six), (lanes, slots), generator=g)]
+    param = torch.rand((lanes, slots, 6), generator=g) * 0.9 + 0.05
+    param[..., 2] = 1.0 + torch.rand((lanes, slots), generator=g)
+
+    def unit():
+        return torch.nn.functional.normalize(torch.randn((lanes, 3), generator=g), dim=-1)
+
+    lobes = {"type": types,
+             "flags": torch.tensor([LOBE_FLAGS.get(k, 0)
+                                    for k in range(max(LOBE_FLAGS) + 1)])[types],
+             "n": torch.randint(1, slots + 1, (lanes,), generator=g),
+             "weight": torch.rand((lanes, slots, 3), generator=g), "param": param}
+    lobes = {k: v.to(dev) for k, v in lobes.items()}
+    lobes.update(present=six, max_lobes=slots)
+    n, wi, wo = unit().to(dev), unit().to(dev), unit().to(dev)
+    u2 = torch.rand((lanes, 2), generator=g).to(dev)
+    grad = torch.randn((lanes, 3), generator=g).to(dev)
+    b_in = 12 + 4 * slots + 4 + 4
+    bound = lanes * (b_in + 12 * slots) / H100_BYTES * 1e3
+    out = []
+    for entry, sample, x in (("bsdf_f", False, wo), ("bsdf_sample", True, u2)):
+        no_grad, saving = getattr(bk, entry), getattr(bk, entry + "_saving")
+        eager = bsdf._bsdf_sample_eager if sample else bsdf._bsdf_f_eager
+        _, saved = saving(lobes, n, wi, x)
+        _, saved_p = bk.saving_plain(sample, lobes, n, wi, x)
+        k0 = bk.LAUNCHES["bsdf_weight_grad"]
+        got = bk.bsdf_weight_grad(grad, *saved, slots, sample)
+        torch.cuda.synchronize()
+        counted = bk.LAUNCHES["bsdf_weight_grad"] - k0
+
+        def eager_fwd_bwd():
+            w = lobes["weight"].clone().requires_grad_()
+            res = eager(dict(lobes, weight=w), n, wi, x)
+            return torch.autograd.grad(res[0] if sample else res, w, grad)[0]
+
+        differ = {"plain": lanes_differ(got, bk.weight_grad_plain(grad, *saved_p, slots, sample)),
+                  "autograd": lanes_differ(got, eager_fwd_bwd()),
+                  "saved": sum(lanes_differ(a.reshape(lanes, -1), b.reshape(lanes, -1))
+                               for a, b in zip(saved, saved_p))}
+        row = {"name": "bsdf_weight_grad", "route": "cuda",
+               "source": "phosphorus_mk2_tpu_torch/csrc/bsdf.cu", "replaces": None,
+               "launches": launches["bsdf_weight_grad"],
+               "max_abs_err": 0.0 if not any(differ.values()) else None,
+               "ms": cuda_ms(lambda: bk.bsdf_weight_grad(grad, *saved, slots, sample), 200),
+               "plain_ms": cuda_ms(lambda: bk.weight_grad_plain(grad, *saved, slots, sample), 20),
+               "eager_fwd_bwd_ms": cuda_ms(eager_fwd_bwd, 5),
+               "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+               "parity": not any(differ.values()),
+               "shape": f"{lanes} hits x {slots} slots, six types at random ({entry})",
+               "entry": entry, "lanes_differ": differ, "counted": counted,
+               "forward_ms": {"no_grad": cuda_ms(lambda: no_grad(lobes, n, wi, x), 200),
+                              "save": cuda_ms(lambda: saving(lobes, n, wi, x), 200)}}
+        print(f"bsdf_weight_grad ({entry}) {row['shape']}: lanes differing {differ}, counted "
+              f"{counted}; {row['ms']:.5f} ms/launch, bound {bound:.5f} ms (bytes), plain "
+              f"{row['plain_ms']:.4f} ms, eager forward and backward "
+              f"{row['eager_fwd_bwd_ms']:.4f} ms; the {entry} forward {row['forward_ms']}",
+              flush=True)
+        check(counted == 1 and row["parity"], f"bsdf_weight_grad: {row}")
+        out.append(row)
+    out[0]["other_shapes"] = [{k: out[1][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                      "forward_ms")}]
+    print(json.dumps({"bsdf_weight_grad": out}), flush=True)
+    return out[:1]
 
 
 # ---------------------------------------------------------------------------
@@ -2651,8 +2740,8 @@ def lobe_routes_card(path, scenes, dev, count):
     """8.5: multi_bsdf_scene 512x512, depth 9, 2 spp, brute, no-grad
     forward on the eager lobe code and on the kernel route (csrc/bsdf.cu):
     the two films bit-equal; timed in turns (eager, kernel, kernel,
-    eager). Then gradients (the eager code: autograd records them) at
-    256x256, depth 2: finite and not all zero. The four timed forwards
+    eager). Then gradients (the eager code: the lobe parameters require
+    grad) at 256x256, depth 2: finite and not all zero. The four timed forwards
     are counted; the warm-ups and the gradient render not."""
     from phosphorus_mk2_tpu_torch.core.camera import camera_to_params
 
@@ -4880,6 +4969,8 @@ def run(profile: bool, upto: int, only_tunables: bool = False, only_options: boo
                          dev, sass, rows[0]["sm_clock_mhz"], terrain_data.bvh["cluster_rows_bf16"])
     phase("7b the lobe container's kernels")
     rows += bsdf_timing(bk, pt, scenes, launches)
+    phase("7c the lobe weights' gradient")
+    rows += bsdf_grad_timing(bk, launches, dev)
     if upto < 8:
         return 0
 

@@ -7,13 +7,23 @@ sample reuse), then folds in the values and pdfs of flag-compatible
 other lobes and averages the pdf.
 
 The container is a struct of tensors over the wavefront: per-hit lobe
-arrays gathered from the material tables by material id. A call on
-CUDA tensors that autograd need not record (no grad mode, or no input
-that requires grad) is one launch of a kernel (bsdf/kernel.py,
-csrc/bsdf.cu). Every other call, autograd's and the CPU's, runs the
-eager lobe code, the lobes dispatched densely (see bsdf/lobes.py). Both
-routes give the same values. ``LAUNCHES`` counts the calls of each
-route; a call is the span ``bsdf.kernel`` or ``bsdf.eager`` while a
+arrays gathered from the material tables by material id. Each call takes
+one of three routes, picked from what it is handed (``_kernel_route``):
+  * kernel: CUDA tensors that autograd need not record (no grad mode, or
+    no input that requires grad) are one launch of a kernel
+    (bsdf/kernel.py, csrc/bsdf.cu);
+  * kernel_grad: CUDA tensors whose only input that requires grad is the
+    lobe weight (trainable albedos): the container is linear in the
+    weights, so ``bsdf_f`` and ``bsdf_sample`` are an autograd Function
+    whose forward is one launch that keeps each slot's lobe value and
+    whose backward is one launch of the weight's gradient (``bsdf_pdf``
+    reads no weight and takes the kernel route);
+  * eager: every other call (the CPU's; directions, uniforms or lobe
+    parameters that require grad) runs the eager lobe code, the lobes
+    dispatched densely (see bsdf/lobes.py).
+The routes give the same values and the same weight gradients, bit for
+bit. ``LAUNCHES`` counts the calls of each route; a call is the span
+``bsdf.kernel``, ``bsdf.kernel_grad`` or ``bsdf.eager`` while a
 torch.profiler session is active. Textures modulate lobe weights
 (``apply_textures``) and emission (``emission_at``, ``emission_from_row``,
 ``env_emission_at``); all of it is the identity for untextured scenes.
@@ -36,13 +46,13 @@ from phosphorus_mk2_tpu_torch.core.texture import (
     sample_texture_any,
 )
 from phosphorus_mk2_tpu_torch.math.fresnel import dielectric
-from phosphorus_mk2_tpu_torch.math.grad_gather import gather_rows
+from phosphorus_mk2_tpu_torch.math.grad_gather import block_of, gather_rows
 from phosphorus_mk2_tpu_torch.math.sampling import remap_index_sample
 from phosphorus_mk2_tpu_torch.math.vec import dot
 from phosphorus_mk2_tpu_torch.utils.profiling import counted, span
 
 # the container calls (bsdf_f, bsdf_pdf, bsdf_sample) by route
-LAUNCHES = counted("bsdf.LAUNCHES", {"bsdf_kernel": 0, "bsdf_eager": 0})
+LAUNCHES = counted("bsdf.LAUNCHES", {"bsdf_kernel": 0, "bsdf_kernel_grad": 0, "bsdf_eager": 0})
 
 
 def material_tables(scene):
@@ -166,12 +176,14 @@ def unpack_hit_rows(scene, hrow, irow, layout):
     block (hit_i rows), or None to read it from hrow's exact small-int
     float columns (the one-gather form). The tex dict holds, when the
     scene has them, emission_tex (N,) and lobe_tex (N, Lu), and
-    normal_tex (N,)."""
+    normal_tex (N,). The emission, the weights and the parameters require
+    grad only where the scene's own field does (``block_of``)."""
     aw, lu, p = layout["attr_w"], layout["lu"], layout["p"]
     n = hrow.shape[0]
-    emission = hrow[:, aw : aw + 3]
-    weight = hrow[:, aw + 3 : aw + 3 + lu * 3].reshape(n, lu, 3)
-    param = hrow[:, aw + 3 + lu * 3 : aw + 3 + lu * (3 + p)].reshape(n, lu, p)
+    emission = block_of(hrow, scene.emission)[:, aw : aw + 3]
+    weight = block_of(hrow, scene.lobe_weight)[:, aw + 3 : aw + 3 + lu * 3].reshape(n, lu, 3)
+    param = block_of(hrow, scene.lobe_param)[:, aw + 3 + lu * 3 : aw + 3 + lu * (3 + p)]
+    param = param.reshape(n, lu, p)
     nee_pdf = hrow[:, aw + 3 + lu * (3 + p)]
     irow = (hrow[:, layout["int_off"] :] if irow is None else irow).to(torch.int64)
     lobes = {
@@ -216,8 +228,8 @@ def gather_lobes(scene, mat_id, tables=None) -> dict:
         irow = il[mat_id].long()
         gathered = {
             "type": irow[:, :L],
-            "weight": frow[:, : L * 3].reshape(n, L, 3),
-            "param": frow[:, L * 3 :].reshape(n, L, -1),
+            "weight": block_of(frow, scene.lobe_weight)[:, : L * 3].reshape(n, L, 3),
+            "param": block_of(frow, scene.lobe_param)[:, L * 3 :].reshape(n, L, -1),
             "flags": irow[:, L : 2 * L],
             "n": irow[:, 2 * L],
         }
@@ -368,25 +380,64 @@ def _slots(L: int, device):
     return torch.arange(L, device=device)[None, :]
 
 
-def _kernel_route(lobes: dict, *xs) -> bool:
-    """Whether a container call takes its kernel: the inputs are on CUDA,
-    and autograd has nothing to record (grad mode off, or neither the
-    directions, the uniforms nor the lobe weights and parameters require
-    grad)."""
+def _kernel_route(lobes: dict, *xs) -> str:
+    """A container call's route: "kernel" on CUDA inputs that autograd has
+    nothing to record for (grad mode off, or neither the directions, the
+    uniforms nor the lobe weights and parameters require grad);
+    "kernel_grad" on CUDA inputs of which only the lobe weights require
+    grad; "eager" otherwise."""
     if not xs[0].is_cuda:
-        return False
-    return not torch.is_grad_enabled() or not any(
-        t.requires_grad for t in (*xs, lobes["weight"], lobes["param"]))
+        return "eager"
+    if not torch.is_grad_enabled():
+        return "kernel"
+    if any(t.requires_grad for t in (*xs, lobes["param"])):
+        return "eager"
+    return "kernel_grad" if lobes["weight"].requires_grad else "kernel"
 
 
-def _call(kernel_fn, eager_fn, lobes: dict, *xs):
+def _call(kernel_fn, grad_fn, eager_fn, lobes: dict, *xs):
     """Run one container call on its route, spanned, and count it once it
-    has returned."""
-    route, fn = ("kernel", kernel_fn) if _kernel_route(lobes, *xs) else ("eager", eager_fn)
+    has returned. grad_fn None: the call reads no weight, and the kernel
+    route serves the kernel_grad one."""
+    route = _kernel_route(lobes, *xs)
+    if route == "kernel_grad" and grad_fn is None:
+        route = "kernel"
+    fn = {"kernel": kernel_fn, "kernel_grad": grad_fn, "eager": eager_fn}[route]
     with span(f"bsdf.{route}"):
         out = fn(lobes, *xs)
     LAUNCHES[f"bsdf_{route}"] += 1
     return out
+
+
+class _WeightGrad(torch.autograd.Function):
+    """A container call whose only input that requires grad is the lobe
+    weight: the forward is kernel.bsdf_f_saving / bsdf_sample_saving (the
+    call's values and what the weight's gradient reads), the backward
+    kernel.bsdf_weight_grad, at the weight's own shape. wo, the pdf and
+    the flags do not depend on the weights."""
+
+    @staticmethod
+    def forward(ctx, weight, sample: bool, lobes: dict, n, wi, x):
+        saving = kernel.bsdf_sample_saving if sample else kernel.bsdf_f_saving
+        out, saved = saving(dict(lobes, weight=weight), n, wi, x)
+        ctx.save_for_backward(*saved)
+        ctx.sample, ctx.slots = sample, weight.shape[1]
+        if sample:
+            ctx.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        gw = kernel.bsdf_weight_grad(g, *ctx.saved_tensors, ctx.slots, ctx.sample)
+        return gw, None, None, None, None, None
+
+
+def _bsdf_f_kernel_grad(lobes: dict, n, wi, wo):
+    return _WeightGrad.apply(lobes["weight"], False, lobes, n, wi, wo)
+
+
+def _bsdf_sample_kernel_grad(lobes: dict, n, wi, u2):
+    return _WeightGrad.apply(lobes["weight"], True, lobes, n, wi, u2)
 
 
 def bsdf_f(lobes: dict, n, wi, wo):
@@ -395,24 +446,36 @@ def bsdf_f(lobes: dict, n, wi, wo):
     wi = direction toward the light; wo = toward the viewer. Includes the
     incident-cosine factor. Returns (N, 3) rgb.
     """
-    return _call(kernel.bsdf_f, _bsdf_f_eager, lobes, n, wi, wo)
+    return _call(kernel.bsdf_f, _bsdf_f_kernel_grad, _bsdf_f_eager, lobes, n, wi, wo)
 
 
 def _bsdf_f_eager(lobes: dict, n, wi, wo):
+    return _bsdf_f_sum(lobes, *_bsdf_f_parts(lobes, n, wi, wo))
+
+
+def _bsdf_f_parts(lobes: dict, n, wi, wo):
+    """bsdf_f's weight-free part: every slot's lobe value e (N, L), the
+    incident cosine atl (N,) and the active hemisphere-matching slots
+    (N, L) bool."""
     L = lobes.get("max_lobes", MAX_LOBES)
     atl = dot(n, wi)
     match = _hemisphere_match(lobes["flags"][:, :L], n, wi, wo)
     active = _slots(L, n.device) < lobes["n"][:, None]
     e, _ = _eval_all_slots(lobes, n, wi, wo)
-    contrib = e[..., None] * lobes["weight"][:, :L] * atl[..., None, None]
-    return torch.where((active & match)[..., None], contrib, 0.0).sum(dim=1)
+    return e, atl, active & match
+
+
+def _bsdf_f_sum(lobes: dict, e, atl, on):
+    """bsdf_f's value from its parts and the weights."""
+    contrib = e[..., None] * lobes["weight"][:, : e.shape[1]] * atl[..., None, None]
+    return torch.where(on[..., None], contrib, 0.0).sum(dim=1)
 
 
 def bsdf_pdf(lobes: dict, n, wi, wo):
     """Solid-angle pdf of the uniform one-sample lobe mixture sampling
     ``wi`` given the viewer direction ``wo``: (1/n_lobes) times the sum
     of the active hemisphere-matching lobes' pdfs. Returns (N,)."""
-    return _call(kernel.bsdf_pdf, _bsdf_pdf_eager, lobes, n, wi, wo)
+    return _call(kernel.bsdf_pdf, None, _bsdf_pdf_eager, lobes, n, wi, wo)
 
 
 def _bsdf_pdf_eager(lobes: dict, n, wi, wo):
@@ -430,36 +493,46 @@ def bsdf_sample(lobes: dict, n, wi, u2):
     wi = direction toward the previous path vertex; u2 = (N, 2) uniforms.
     Returns (f (N,3), wo (N,3), pdf (N,), flags (N,) int64).
     """
-    return _call(kernel.bsdf_sample, _bsdf_sample_eager, lobes, n, wi, u2)
+    return _call(kernel.bsdf_sample, _bsdf_sample_kernel_grad, _bsdf_sample_eager, lobes,
+                 n, wi, u2)
 
 
 def _bsdf_sample_eager(lobes: dict, n, wi, u2):
+    parts = _bsdf_sample_parts(lobes, n, wi, u2)
+    _, _, wo, pdf, flags_sel, valid, _, _ = parts
+    return _bsdf_sample_sum(lobes, parts), wo, torch.where(valid, pdf, 0.0), flags_sel
+
+
+def _sel_slot(onehot, arr):
+    """The selected slot of (N, L, ...) ``arr`` by broadcast-select over
+    the (few) lobe slots."""
+    m = onehot.reshape(onehot.shape + (1,) * (arr.ndim - 2))
+    return torch.where(m, arr, 0).sum(dim=1)
+
+
+def _bsdf_sample_parts(lobes: dict, n, wi, u2):
+    """bsdf_sample's weight-free part: (onehot (N, slots) the selected
+    slot, f_s (N,) its lobe value, wo, the mixture pdf before the validity
+    zeroing, flags (N,), valid (N,) the selected lobe's pdf is not 0,
+    use (N, L) the folded-in slots and e (N, L) every slot's lobe value at
+    wo; use and e are None for one lobe slot)."""
     n_lobes = torch.clamp(lobes["n"], min=1)
     idx, u_remap = remap_index_sample(u2[..., 0], n_lobes)
-
-    # slot selection by broadcast-select over the (few) lobe slots
     Lsel = lobes["type"].shape[1]
     onehot = idx[:, None] == torch.arange(Lsel, device=idx.device)[None, :]
-
-    def sel_slot(arr):
-        m = onehot.reshape(onehot.shape + (1,) * (arr.ndim - 2))
-        return torch.where(m, arr, 0).sum(dim=1)
-
-    type_sel = sel_slot(lobes["type"])
-    weight_sel = sel_slot(lobes["weight"])
-    param_sel = sel_slot(lobes["param"])
-    flags_sel = sel_slot(lobes["flags"])
+    type_sel = _sel_slot(onehot, lobes["type"])
+    param_sel = _sel_slot(onehot, lobes["param"])
+    flags_sel = _sel_slot(onehot, lobes["flags"])
 
     remapped = torch.stack([u_remap, u2[..., 1]], dim=-1)
     f_s, wo, pdf = sample_lobe(type_sel, param_sel, n, wi, remapped,
                                present=lobes.get("present"))
-
-    selected_valid = pdf != 0.0
-    result = f_s[..., None] * weight_sel
+    valid = pdf != 0.0
 
     # fold in the other flag-compatible lobes (one-sample mixture,
     # reference src/bsdf.cpp:226-247); nothing to fold for one lobe
     L = lobes.get("max_lobes", MAX_LOBES)
+    use = e_all = None
     if L > 1:
         slot = _slots(L, n.device)
         flags_all = lobes["flags"][:, :L]
@@ -467,14 +540,20 @@ def _bsdf_sample_eager(lobes: dict, n, wi, u2):
         cond = (slot != idx[:, None]) & (slot < lobes["n"][:, None]) & subset
         use = cond & _hemisphere_match(flags_all, n, wi, wo)
         e_all, pdf_all = _eval_all_slots(lobes, n, wi, wo)
-        result = result + torch.where(
-            use[..., None], e_all[..., None] * lobes["weight"][:, :L], 0.0
-        ).sum(dim=1)
         pdf = pdf + torch.where(use, pdf_all, 0.0).sum(dim=1)
         pdf = pdf / (1 + use.sum(dim=1)).to(pdf.dtype)
-    result = torch.where(selected_valid[..., None], result, 0.0)
-    pdf = torch.where(selected_valid, pdf, 0.0)
-    return result, wo, pdf, flags_sel
+    return onehot, f_s, wo, pdf, flags_sel, valid, use, e_all
+
+
+def _bsdf_sample_sum(lobes: dict, parts):
+    """bsdf_sample's value from its parts and the weights."""
+    onehot, f_s, _, _, _, valid, use, e_all = parts
+    result = f_s[..., None] * _sel_slot(onehot, lobes["weight"])
+    if use is not None:
+        result = result + torch.where(
+            use[..., None], e_all[..., None] * lobes["weight"][:, : use.shape[1]], 0.0
+        ).sum(dim=1)
+    return torch.where(valid[..., None], result, 0.0)
 
 
 def is_specular_flags(flags):

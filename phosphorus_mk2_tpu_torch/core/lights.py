@@ -13,7 +13,7 @@ import torch
 
 from phosphorus_mk2_tpu_torch.core.scene import LIGHT_AREA
 from phosphorus_mk2_tpu_torch.core.shading import shading_parameters
-from phosphorus_mk2_tpu_torch.math.grad_gather import gather_rows
+from phosphorus_mk2_tpu_torch.math.grad_gather import block_of, gather_rows
 from phosphorus_mk2_tpu_torch.math.vec import maximum
 from phosphorus_mk2_tpu_torch.math.sampling import (
     remap_index_sample,
@@ -101,12 +101,14 @@ def sample_lights(scene, u_pick, u_tri, u_uv, attr=None, meta=None, lt_table=Non
         # the light-triangle row: attributes and emission in one gather;
         # its backward sums every lane into the few light triangles
         lrow = gather_rows(lt_table, loffset.long() + tri_sel, "index")
-        a, b, c = lrow[..., 0:3], lrow[..., 3:6], lrow[..., 6:9]
+        # each block requires grad where its source does (block_of)
+        arow = lrow if attr is None else block_of(lrow, attr)
+        a, b, c = arow[..., 0:3], arow[..., 3:6], arow[..., 6:9]
         # the row is attr | emission 3 [| emission texture 1]
         aw = attr_w if attr_w is not None else lrow.shape[-1] - 3 - scene.has_textures
-        e_area = lrow[..., aw : aw + 3]
+        e_area = block_of(lrow, scene.emission)[..., aw : aw + 3]
         etex_area = lrow[..., aw + 3].to(torch.int64) if scene.has_textures else None
-        sp = shading_parameters(scene, loffset, bu, bv, row=lrow)
+        sp = shading_parameters(scene, loffset, bu, bv, row=arow)
     else:
         gtri = scene.light_tris[loffset.long() + tri_sel].long()
         if attr is None:

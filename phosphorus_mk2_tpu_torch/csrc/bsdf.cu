@@ -6,13 +6,25 @@
 // (bsdf/lobes.py) runs each lobe type's arithmetic as hundreds of
 // elementwise launches a call. A no-grad render of a six-type scene at
 // depth 9 spent most of its host time there, with the card idle. This
-// kernel replaces all of it on the no-grad forward; autograd and the CPU
-// keep the eager code.
+// kernel replaces all of it on the no-grad forward; the CPU, and calls
+// whose directions or lobe parameters autograd records, keep the eager code.
 //
 // What bounds it on an H100: neither bytes nor operations. A call reads
 // some 100-200 bytes a hit (the lobe slots, the normal, two directions)
 // and does a few hundred float operations a slot; at 131,072 hits that is
 // ~20 MB, ~6 us at 3.35 TB/s. Its cost is one launch.
+//
+// Under autograd, a call whose only input that requires grad is the lobe
+// weight (bsdf/bsdf.py's kernel_grad route) runs the SAVE instantiation of
+// the same kernels, which also writes what the weight's gradient needs,
+// and its backward is bsdf_weight_grad_kernel. No TPU kernel corresponds
+// to that backward either: JAX differentiates the fused XLA arithmetic.
+// The container is linear in the weights, so the gradient is a few
+// products a slot of the incoming gradient and the saved values; the
+// eager code's backward was hundreds of launches a call. The backward
+// reads the gradient (12 B), the slot values (4 B a slot), one float and
+// one int32 a hit and writes 12 B a slot: at 262,144 hits x 2 slots
+// ~14 MB, ~4 us at 3.35 TB/s, so again one launch is its cost.
 //
 // The design:
 //   * One thread a hit; each slot's lobe type picks its arithmetic in a
@@ -63,7 +75,17 @@ struct BsdfArgs {
   float* wo_out;        // (lanes, 3)
   float* pdf_out;       // (lanes,)
   long long* flags_out; // (lanes,)
+  // SAVE (set when e_out is not null): what bsdf_weight_grad_kernel reads
+  float* e_out;         // (lanes, max_lobes) each slot's lobe value (bsdf_sample: L > 1 only)
+  float* scale_out;     // (lanes,) n.wi (bsdf_f) or the selected lobe's value (bsdf_sample)
+  int* bits_out;        // (lanes,) see GRAD_BITS
 };
+
+// GRAD_BITS, a hit's int32 of the SAVE forward: bit s (s < max_lobes) is
+// slot s's mask (bsdf_f: active and hemisphere-matching; bsdf_sample:
+// folded in); bsdf_sample adds the selected slot in bits 8-15 (255: none
+// of the weight's slots) and whether the sample was valid in bit 16.
+constexpr int SEL_SHIFT = 8, SEL_NONE = 255, VALID_BIT = 1 << 16;
 
 namespace {
 
@@ -554,7 +576,9 @@ __device__ __forceinline__ float weight_at(const BsdfArgs& a, long long i, long 
 
 // bsdf_f (want_pdf 0): the active hemisphere-matching slots' f * weight
 // times n.wi; bsdf_pdf (want_pdf 1): their pdfs' sum over max(n_lobes, 1)
-template <bool WANT_PDF>
+// SAVE (bsdf_f only): each slot's value, active or not, as the eager
+// code's dense evaluation has it, n.wi and the slots' masks
+template <bool WANT_PDF, bool SAVE>
 __global__ void __launch_bounds__(THREADS) bsdf_eval_kernel(const BsdfArgs a) {
   const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (i >= a.lanes) return;
@@ -574,16 +598,25 @@ __global__ void __launch_bounds__(THREADS) bsdf_eval_kernel(const BsdfArgs a) {
   const int L = static_cast<int>(a.max_lobes);
   float terms[3][MAX_SLOTS];
   float pdfs[MAX_SLOTS];
+  int mask = 0;
   for (int s = 0; s < L; ++s) {
     const long long type = a.type[i * a.type_s0 + s * a.type_s1];
     const long long fl = a.flags[i * a.flags_s0 + s * a.flags_s1];
     const bool use = s < nl && hemisphere_match(fl, reflect);
     float f = 0.0f, pdf = 0.0f;
-    if (use)
+    if (SAVE || use)
       eval_slot(type, a.present, param_at(a, i, s, 0), param_at(a, i, s, 1),
                 param_at(a, i, s, 2), li, lo, n_wi, wi_wo, f, pdf);
+    if (SAVE) {
+      a.e_out[i * L + s] = f;
+      mask |= static_cast<int>(use) << s;
+    }
     pdfs[s] = use ? pdf : 0.0f;
     for (int k = 0; k < 3; ++k) terms[k][s] = use ? (f * weight_at(a, i, s, k)) * n_wi : 0.0f;
+  }
+  if (SAVE) {
+    a.scale_out[i] = n_wi;
+    a.bits_out[i] = mask;
   }
   if (WANT_PDF) {
     const float total = sum_slots_contiguous(pdfs, L);
@@ -594,7 +627,10 @@ __global__ void __launch_bounds__(THREADS) bsdf_eval_kernel(const BsdfArgs a) {
 }
 
 // bsdf_sample: pick a slot uniformly (remap_index_sample), sample its lobe,
-// fold in the other flag-compatible slots' values and pdfs
+// fold in the other flag-compatible slots' values and pdfs. SAVE: the
+// selected lobe's value, each slot's value at the sampled direction (L > 1)
+// and GRAD_BITS
+template <bool SAVE>
 __global__ void __launch_bounds__(THREADS) bsdf_sample_kernel(const BsdfArgs a) {
   const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (i >= a.lanes) return;
@@ -613,7 +649,9 @@ __global__ void __launch_bounds__(THREADS) bsdf_sample_kernel(const BsdfArgs a) 
   // the selected slot; a sum of one slot and zeros, as the eager select is
   long long type_sel = 0, flags_sel = 0;
   float w_sel[3] = {0.0f, 0.0f, 0.0f}, p_sel[3] = {0.0f, 0.0f, 0.0f};
-  if (idx >= 0 && idx < a.sel_slots) {
+  const bool selected = idx >= 0 && idx < a.sel_slots;
+  int bits = (selected ? static_cast<int>(idx) : SEL_NONE) << SEL_SHIFT;
+  if (selected) {
     type_sel = a.type[i * a.type_s0 + idx * a.type_s1];
     flags_sel = a.flags[i * a.flags_s0 + idx * a.flags_s1];
     for (int k = 0; k < 3; ++k) {
@@ -648,9 +686,13 @@ __global__ void __launch_bounds__(THREADS) bsdf_sample_kernel(const BsdfArgs a) 
       const bool use =
           s != idx && s < nl && (flags_sel & fl) == fl && hemisphere_match(fl, reflect);
       float f = 0.0f, p = 0.0f;
-      if (use)
+      if (SAVE || use)
         eval_slot(type, a.present, param_at(a, i, s, 0), param_at(a, i, s, 1),
                   param_at(a, i, s, 2), li, lo, n_wi, wi_wo, f, p);
+      if (SAVE) {
+        a.e_out[i * L + s] = f;
+        bits |= static_cast<int>(use) << s;
+      }
       uses += use;
       pdfs[s] = use ? p : 0.0f;
       for (int k = 0; k < 3; ++k) terms[k][s] = use ? f * weight_at(a, i, s, k) : 0.0f;
@@ -664,25 +706,99 @@ __global__ void __launch_bounds__(THREADS) bsdf_sample_kernel(const BsdfArgs a) 
   }
   a.pdf_out[i] = selected_valid ? pdf : 0.0f;
   a.flags_out[i] = flags_sel;
+  if (SAVE) {
+    a.scale_out[i] = f_s;
+    a.bits_out[i] = bits | (selected_valid ? VALID_BIT : 0);
+  }
+}
+
+// The gradient of a container call's weight input, (lanes, out_slots, 3),
+// from the incoming gradient g of its value and its SAVE forward's values:
+// one thread a hit. Each value is the product eager autograd forms for it
+// (bsdf/bsdf.py _bsdf_f_eager, _bsdf_sample_eager), in the same order:
+//   bsdf_f:      (where(mask_s, g, 0) * n.wi) * e_s, 0 past max_lobes;
+//   bsdf_sample: g1 = where(valid, g, 0); the selected slot's g1 * f_s
+//                (+0 on the others), plus, where max_lobes > 1,
+//                where(folded_s, g1, 0) * e_s (+0 past max_lobes): the sum
+//                autograd accumulates from the weight's two uses.
+template <bool SAMPLE>
+__global__ void __launch_bounds__(THREADS) bsdf_weight_grad_kernel(
+    const float* g, long long g_s0, long long g_s1, const float* e, const float* scale,
+    const int* bits, float* out, long long lanes, int L, int out_slots) {
+  const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i >= lanes) return;
+  const int b = bits[i];
+  const float sc = scale[i];
+  float gk[3];
+  load3(g, g_s0, g_s1, i, gk);
+  float* o = out + i * out_slots * 3;
+  if (!SAMPLE) {
+    for (int s = 0; s < out_slots; ++s) {
+      const bool m = s < L && ((b >> s) & 1);
+      const float es = s < L ? e[i * L + s] : 0.0f;
+      for (int k = 0; k < 3; ++k) o[s * 3 + k] = s < L ? ((m ? gk[k] : 0.0f) * sc) * es : 0.0f;
+    }
+    return;
+  }
+  const bool valid = (b & VALID_BIT) != 0;
+  const int sel = (b >> SEL_SHIFT) & 0xFF;
+  float g1[3];
+  for (int k = 0; k < 3; ++k) g1[k] = valid ? gk[k] : 0.0f;
+  for (int s = 0; s < out_slots; ++s) {
+    const bool folded = s < L && ((b >> s) & 1);
+    const float es = (L > 1 && s < L) ? e[i * L + s] : 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      const float picked = s == sel ? g1[k] * sc : 0.0f;
+      if (L > 1) {
+        const float fold = s < L ? (folded ? g1[k] : 0.0f) * es : 0.0f;
+        o[s * 3 + k] = picked + fold;
+      } else {
+        o[s * 3 + k] = picked;
+      }
+    }
+  }
 }
 
 }  // namespace
 
+// a non-null e_out selects the SAVE instantiation (bsdf_f and bsdf_sample)
 extern "C" int bsdf_eval_launch(const BsdfArgs* args, int want_pdf, void* stream) {
   if (args->lanes <= 0) return 0;
   const unsigned blocks = static_cast<unsigned>((args->lanes + THREADS - 1) / THREADS);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (want_pdf)
-    bsdf_eval_kernel<true><<<blocks, THREADS, 0, s>>>(*args);
+    bsdf_eval_kernel<true, false><<<blocks, THREADS, 0, s>>>(*args);
+  else if (args->e_out != nullptr)
+    bsdf_eval_kernel<false, true><<<blocks, THREADS, 0, s>>>(*args);
   else
-    bsdf_eval_kernel<false><<<blocks, THREADS, 0, s>>>(*args);
+    bsdf_eval_kernel<false, false><<<blocks, THREADS, 0, s>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bsdf_sample_launch(const BsdfArgs* args, void* stream) {
   if (args->lanes <= 0) return 0;
   const unsigned blocks = static_cast<unsigned>((args->lanes + THREADS - 1) / THREADS);
-  bsdf_sample_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (args->e_out != nullptr)
+    bsdf_sample_kernel<true><<<blocks, THREADS, 0, s>>>(*args);
+  else
+    bsdf_sample_kernel<false><<<blocks, THREADS, 0, s>>>(*args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bsdf_weight_grad_launch(const float* g, long long g_s0, long long g_s1,
+                                       const float* e, const float* scale, const int* bits,
+                                       float* out, long long lanes, int max_lobes,
+                                       int out_slots, int sample, void* stream) {
+  if (lanes <= 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((lanes + THREADS - 1) / THREADS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sample)
+    bsdf_weight_grad_kernel<true><<<blocks, THREADS, 0, s>>>(g, g_s0, g_s1, e, scale, bits, out,
+                                                             lanes, max_lobes, out_slots);
+  else
+    bsdf_weight_grad_kernel<false><<<blocks, THREADS, 0, s>>>(g, g_s0, g_s1, e, scale, bits,
+                                                              out, lanes, max_lobes, out_slots);
   return static_cast<int>(cudaGetLastError());
 }
 

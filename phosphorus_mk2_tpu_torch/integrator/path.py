@@ -78,6 +78,7 @@ from phosphorus_mk2_tpu_torch.core.shading import (
     triangle_attribute_table,
 )
 from phosphorus_mk2_tpu_torch.math import rng
+from phosphorus_mk2_tpu_torch.math.grad_gather import block_of
 from phosphorus_mk2_tpu_torch.math.vec import (
     RAY_EPSILON,
     dot,
@@ -449,10 +450,11 @@ def trace_sample(
             hrow = gather_hit_rows(hit_f, safe_tri, hit_layout, trainable)
             mat_raw, e_row, lobes, nee_pdf_row, texids = unpack_hit_rows(
                 scene, hrow, None, hit_layout)
-            t_hit, u, v = reintersect(scene, tri, p, d, row=hrow)
+            arow = block_of(hrow, attr)  # the attribute block's grad, as its table's
+            t_hit, u, v = reintersect(scene, tri, p, d, row=arow)
             u = torch.where(hit, u, 0.0)
             v = torch.where(hit, v, 0.0)
-            sp = shading_parameters(scene, tri, u, v, row=hrow)
+            sp = shading_parameters(scene, tri, u, v, row=arow)
             # material ids feed only the texture and normal-map lookups
             textured = scene.has_textures or scene.has_normal_maps
             mat = torch.where(hit, mat_raw, 0) if textured else None

@@ -221,3 +221,15 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, transpose: str = "segsum
     if not (table.requires_grad and torch.is_grad_enabled()):
         return table[idx]
     return _GatherRows.apply(table, idx.long(), transpose)
+
+
+def block_of(row: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+    """``row`` where ``source``, the tensor that one column block of it
+    was built from, requires grad; else ``row`` detached. Every column of
+    a row gathered from a concatenated table requires grad when one of
+    its sources does; slicing a block from ``block_of(row, source)``
+    makes its requires_grad say what the block depends on, and the BSDF
+    container picks its route from that (bsdf/bsdf.py). No gradient
+    changes: a detached block's could only reach a tensor that does not
+    require grad."""
+    return row if source.requires_grad else row.detach()

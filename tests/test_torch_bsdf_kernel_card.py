@@ -4,10 +4,16 @@ and ``bsdf_sample`` bit-equal to the eager dense dispatch, for each lobe
 type alone and all mixed, at 1, 2 and 8 slots, on edge lanes (grazing
 and back-facing directions, a degenerate frame, the eta = 1
 passthrough, total internal reflection, no lobes, a pdf of 0) and on
-strided views; bit-equal twice; one count a call. Two NaNs count
-as equal whatever their payloads. Needs a card: the ``card`` fixture
-skips without one (``python -m pytest tests/test_torch_bsdf_kernel_card.py``
-on the card's machine). No JAX here: the eager code is the reference."""
+strided views; bit-equal twice; one count a call. Under autograd, a call
+whose only input that requires grad is the lobe weight (the kernel_grad
+route): its values and the weight's gradient bit-equal to eager
+autograd's (signed zeros included), its saved values to the plain
+version's, and a whole ``InverseRenderer`` step bit-equal to the same
+step on the eager code. Two NaNs count as equal whatever their payloads.
+Needs a card: the ``card`` fixture skips without one (``python -m pytest
+tests/test_torch_bsdf_kernel_card.py`` on the card's machine). No JAX
+here: the eager code is the reference."""
+import numpy as np
 import pytest
 import torch
 
@@ -176,21 +182,199 @@ def test_twice_bit_equal_and_counted(card):
         b = (bsdf.bsdf_f(lobes, n, wi, wo), bsdf.bsdf_pdf(lobes, n, wi, wo),
              *bsdf.bsdf_sample(lobes, n, wi, u2))
     torch.cuda.synchronize()
-    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 6, "bsdf_eager": 0}
-    assert {k: kernel.LAUNCHES[k] - k0[k] for k in k0} == {"bsdf_eval": 4, "bsdf_sample": 2}
+    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {
+        "bsdf_kernel": 6, "bsdf_kernel_grad": 0, "bsdf_eager": 0}
+    assert {k: kernel.LAUNCHES[k] - k0[k] for k in k0} == {
+        "bsdf_eval": 4, "bsdf_sample": 2, "bsdf_weight_grad": 0}
     for x, y in zip(a, b):
         assert not _diff(x, y)
 
 
 @pytest.mark.card
 def test_grad_inputs_stay_eager(card):
-    """A call autograd has to record runs the eager code, on the card too."""
+    """A call whose lobe parameters or directions autograd has to record
+    runs the eager code, on the card too."""
     lobes, n, wi, wo, u2 = _case(59, 512, 2, TYPES, card)
-    lobes["weight"] = lobes["weight"].clone().requires_grad_()
+    lobes["param"] = lobes["param"].clone().requires_grad_()
+    wi = wi.clone().requires_grad_()
     n0 = dict(bsdf.LAUNCHES)
     bsdf.bsdf_f(lobes, n, wi, wo).sum().backward()
-    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 0, "bsdf_eager": 1}
-    assert lobes["weight"].grad is not None
+    bsdf.bsdf_sample(dict(lobes, param=lobes["param"].detach()), n, wi, u2)[0].sum().backward()
+    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {
+        "bsdf_kernel": 0, "bsdf_kernel_grad": 0, "bsdf_eager": 2}
+    assert lobes["param"].grad is not None and wi.grad is not None
+
+
+@pytest.mark.card
+def test_weight_grad_takes_kernel_grad(card):
+    """A call whose only input that requires grad is the lobe weight takes
+    kernel_grad: one forward launch a call, one backward launch, a
+    gradient at the weight's shape; bsdf_pdf takes the kernel."""
+    lobes, n, wi, wo, u2 = _case(59, 512, 2, TYPES, card)
+    lobes["weight"] = lobes["weight"].clone().requires_grad_()
+    n0, k0 = dict(bsdf.LAUNCHES), dict(kernel.LAUNCHES)
+    (bsdf.bsdf_f(lobes, n, wi, wo).sum() + bsdf.bsdf_sample(lobes, n, wi, u2)[0].sum()).backward()
+    assert not bsdf.bsdf_pdf(lobes, n, wi, wo).requires_grad
+    torch.cuda.synchronize()
+    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {
+        "bsdf_kernel": 1, "bsdf_kernel_grad": 2, "bsdf_eager": 0}
+    assert {k: kernel.LAUNCHES[k] - k0[k] for k in k0} == {
+        "bsdf_eval": 2, "bsdf_sample": 1, "bsdf_weight_grad": 2}
+    assert lobes["weight"].grad.shape == lobes["weight"].shape
+
+
+def _grad_out(lanes, dev, seed):
+    """An incoming gradient with zeros of both signs."""
+    g = torch.randn((lanes, 3), generator=torch.Generator().manual_seed(seed))
+    g[::7] = 0.0
+    g[3::11] = -0.0
+    return g.to(dev)
+
+
+def _leaf(lobes, strided=False):
+    """A weight that requires grad and the leaf its gradient lands in: the
+    weight itself, or a column block of a wider leaf."""
+    w = lobes["weight"].detach()
+    if not strided:
+        leaf = w.clone().requires_grad_()
+        return leaf, leaf
+    wide = torch.full(w.shape[:-1] + (w.shape[-1] + 6,), float("nan"), device=w.device)
+    wide[..., 3:6] = w
+    wide.requires_grad_()
+    return wide, wide[..., 3:6]
+
+
+def _check_grads(lobes, n, wi, wo, u2, what, strided=False, fresnel=False, seed=0):
+    """Each weight-reading entry by the route bsdf/bsdf.py picks against
+    eager autograd: the outputs, the leaf's gradient and (unweighted)
+    the saved values against saving_plain's."""
+    eager = {"bsdf_f": bsdf._bsdf_f_eager, "bsdf_sample": bsdf._bsdf_sample_eager}
+    g = _grad_out(n.shape[0], n.device, seed)
+    for entry in ("bsdf_f", "bsdf_sample"):
+        sample = entry == "bsdf_sample"
+        args = (n, wi, u2) if sample else (n, wi, wo)
+        res = {}
+        for route in ("kernel_grad", "eager"):
+            leaf, weight = _leaf(lobes, strided)
+            lb = dict(lobes, weight=weight)
+            if fresnel:
+                lb = bsdf.apply_fresnel(_FRESNEL, lb, n, wi)
+            n0 = bsdf.LAUNCHES["bsdf_kernel_grad"]
+            out = getattr(bsdf, entry)(lb, *args) if route == "kernel_grad" else (
+                eager[entry](lb, *args))
+            assert bsdf.LAUNCHES["bsdf_kernel_grad"] - n0 == (route == "kernel_grad")
+            outs = out if sample else (out,)
+            res[route] = outs, torch.autograd.grad(outs[0], leaf, g)[0]
+        (got, g_got), (want, g_want) = res["kernel_grad"], res["eager"]
+        _assert_same(tuple(x.detach() for x in got), tuple(x.detach() for x in want),
+                     f"{what} {entry}", lobes)
+        bad = _diff(g_got, g_want)
+        if bad:
+            i = bad[0]
+            raise AssertionError(f"{what} {entry}: the weight gradient differs on {len(bad)} "
+                                 f"lanes; lane {i}: {g_got[i].tolist()} against "
+                                 f"{g_want[i].tolist()}")
+        if fresnel:
+            continue
+        saving = kernel.bsdf_sample_saving if sample else kernel.bsdf_f_saving
+        _, (e, scale, bits) = saving(lobes, *args)
+        _, (e_p, scale_p, bits_p) = kernel.saving_plain(sample, lobes, *args)
+        L = lobes["max_lobes"]
+        saved = [("scale", scale, scale_p), ("bits", bits, bits_p)]
+        if not sample or L > 1:
+            saved.append(("e", e, e_p))
+        for name, a, b in saved:
+            bad = _diff(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1))
+            assert not bad, (f"{what} {entry}: saved {name} differs on {len(bad)} lanes; lane "
+                             f"{bad[0]}: {a[bad[0]].tolist()} against {b[bad[0]].tolist()}")
+
+
+class _Fresnel:
+    has_fresnel = True
+
+
+_FRESNEL = _Fresnel()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("slots", [1, 2, 8])
+@pytest.mark.parametrize("lobe_type", TYPES)
+def test_weight_grad_each_type_alone(card, lobe_type, slots):
+    case = _case(300 * lobe_type + slots, LANES, slots, (lobe_type,), card)
+    _check_grads(*case, f"type {lobe_type} x {slots} slots", seed=slots)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("slots", range(1, 9))
+def test_weight_grad_all_types_mixed(card, slots):
+    case = _case(17 + slots, LANES, slots, TYPES, card)
+    _check_grads(*case, f"mixed x {slots} slots", seed=slots)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("slots", [1, 2, 8])
+def test_weight_grad_through_fresnel_weighting(card, slots):
+    lobes, n, wi, wo, u2 = _case(23 + slots, LANES, slots, TYPES, card)
+    mode = torch.randint(0, 3, lobes["param"].shape[:2], generator=torch.Generator().manual_seed(5))
+    lobes["param"][..., 4] = mode.to(card).float()
+    lobes["param"][..., 5] = 1.45
+    _check_grads(lobes, n, wi, wo, u2, f"Fresnel-weighted x {slots} slots", fresnel=True)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("slots", [1, 2, 8])
+def test_weight_grad_strided_views(card, slots):
+    lobes, n, wi, wo, u2 = _strided(*_case(47 + slots, LANES, slots, TYPES, card))
+    _check_grads(lobes, n, wi, wo, u2, f"strided x {slots} slots", strided=True)
+
+
+@pytest.mark.card
+def test_weight_grad_path_shapes_and_a_whole_frame(card):
+    """The integrator's own shapes, the benchmark scenes' slot counts and
+    multi_bsdf.inverse's 262,144 lanes of a whole 512x512 frame."""
+    for lanes, slots in ((1, 1), (3, 2), (257, 2), (65536, 1), (262144, 2)):
+        _check_grads(*_case(lanes + slots + 1, lanes, slots, TYPES, card), f"{lanes} lanes",
+                     seed=lanes)
+
+
+@pytest.mark.card
+def test_inverse_step_bit_equal_to_the_eager_route(card, monkeypatch):
+    """Two InverseRenderer steps on multi_bsdf_scene 64x64 (emission and
+    lobe_weight, the cluster tracer, depth 3) give the same losses, the
+    same gradients and the same parameters, bit for bit, with the
+    kernel_grad route as with it forced to the eager code."""
+    from phosphorus_mk2_tpu_torch.optim import InverseRenderer
+    from phosphorus_mk2_tpu_torch.scenes import multi_bsdf_scene
+
+    target = np.random.default_rng(29).random((64, 64, 3), dtype=np.float32) * 0.6
+
+    def steps():
+        inv = InverseRenderer(multi_bsdf_scene(64, 64), target, spp=4, max_depth=3, seed=29,
+                              device="cuda")
+        n0 = dict(bsdf.LAUNCHES)
+        losses, grads = [], []
+        for _ in range(2):
+            losses.append(inv.step())
+            grads.append({k: p.grad.clone() for k, p in inv.params.items()})
+        params = {k: p.detach().clone() for k, p in inv.params.items()}
+        return losses, grads, params, {k: bsdf.LAUNCHES[k] - n0[k] for k in n0}
+
+    got = steps()
+    real = bsdf._kernel_route
+    with monkeypatch.context() as m:
+        m.setattr(bsdf, "_kernel_route",
+                  lambda *a: "eager" if real(*a) == "kernel_grad" else real(*a))
+        want = steps()
+    # 2 calls a bounce (bsdf_f, bsdf_sample) x depth 3 x 4 spp x 2 steps
+    assert got[3] == {"bsdf_kernel": 0, "bsdf_kernel_grad": 48, "bsdf_eager": 0}
+    assert want[3] == {"bsdf_kernel": 0, "bsdf_kernel_grad": 0, "bsdf_eager": 48}
+    assert got[0] == want[0]
+    for step, (a, b) in enumerate(zip(got[1], want[1])):
+        for k in a:
+            assert not _diff(a[k], b[k]), f"step {step}: the {k} gradient differs"
+            assert bool((a[k] != 0).any()), f"step {step}: the {k} gradient is zero"
+    for k in got[2]:
+        assert not _diff(got[2][k], want[2][k]), f"the {k} parameters differ"
 
 
 @pytest.mark.card

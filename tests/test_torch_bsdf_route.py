@@ -1,12 +1,15 @@
 """The lobe container's route (bsdf/bsdf.py): which calls take the CUDA
-kernels of bsdf/kernel.py and which the eager lobe code, how each is
-counted in ``bsdf.LAUNCHES``, and the ``bsdf.kernel`` / ``bsdf.eager``
-spans. CPU tensors take the eager code; a call that autograd has to
-record takes it on the card too. There is no card here, so a test that
-needs a call to look like the card's hands over a normal that says it is
-a CUDA tensor (``_card_typed``) and puts a recorder (or a trap) in place
-of the kernel module's handles: a call that reaches a trap is a wrong
-route."""
+kernels of bsdf/kernel.py, which the weight-gradient route (kernel_grad)
+and which the eager lobe code, how each is counted in ``bsdf.LAUNCHES``,
+and the ``bsdf.kernel`` / ``bsdf.kernel_grad`` / ``bsdf.eager`` spans.
+CPU tensors take the eager code; on the card, a call whose only input
+that requires grad is the lobe weight takes kernel_grad (``bsdf_pdf``,
+which reads no weight, the kernel), and a call whose directions,
+uniforms or lobe parameters require grad the eager code. There is no
+card here, so a test that needs a call to look like the card's hands
+over a normal that says it is a CUDA tensor (``_card_typed``) and puts a
+recorder (or a trap) in place of the kernel module's handles: a call
+that reaches a trap is a wrong route."""
 import pytest
 import torch
 
@@ -67,6 +70,31 @@ def _trap(monkeypatch):
         monkeypatch.setattr(kernel, entry, trap)
 
 
+def _plain_saving(monkeypatch):
+    """The kernel_grad route's forward handles replaced by recorders that
+    run their plain versions (a card-typed normal would take the kernel);
+    returns the calls they saw."""
+    seen = []
+
+    def recorder(sample):
+        def call(*args):
+            seen.append(("bsdf_sample" if sample else "bsdf_f", args))
+            return kernel.saving_plain(sample, *args)
+        return call
+
+    monkeypatch.setattr(kernel, "bsdf_f_saving", recorder(False))
+    monkeypatch.setattr(kernel, "bsdf_sample_saving", recorder(True))
+    return seen
+
+
+def _counts(n0):
+    return {k: bsdf.LAUNCHES[k] - n0[k] for k in n0}
+
+
+def _routed(route):
+    return {"bsdf_kernel": 0, "bsdf_kernel_grad": 0, "bsdf_eager": 0, f"bsdf_{route}": 1}
+
+
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_cpu_calls_take_the_eager_code(monkeypatch, entry):
     _trap(monkeypatch)
@@ -75,12 +103,29 @@ def test_cpu_calls_take_the_eager_code(monkeypatch, entry):
     _call(entry, lobes, t)
     with torch.no_grad():
         _call(entry, lobes, t)
-    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 0, "bsdf_eager": 2}
+    assert _counts(n0) == {"bsdf_kernel": 0, "bsdf_kernel_grad": 0, "bsdf_eager": 2}
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_cpu_calls_with_a_weight_that_requires_grad_take_the_eager_code(monkeypatch, entry):
+    _trap(monkeypatch)
+    seen = _plain_saving(monkeypatch)
+    lobes, t = _case(seed=7)
+    lobes["weight"] = lobes["weight"].clone().requires_grad_()
+    n0 = dict(bsdf.LAUNCHES)
+    _call(entry, lobes, t)
+    assert _counts(n0) == _routed("eager") and seen == []
 
 
 @pytest.mark.parametrize("entry,grad_input", GRAD_INPUTS)
 def test_inputs_that_require_grad_stay_eager_on_the_card(monkeypatch, entry, grad_input):
+    """Directions, uniforms or lobe parameters that require grad: the eager
+    code. The lobe weight alone: ``bsdf_f`` and ``bsdf_sample`` take
+    kernel_grad, whose forward handle gets the call's own arguments once
+    and whose value carries the weight's gradient; ``bsdf_pdf`` takes the
+    kernel, and its pdf needs no grad."""
     _trap(monkeypatch)
+    seen = _plain_saving(monkeypatch)
     lobes, t = _case(seed=1)
     if grad_input in ("weight", "param"):
         lobes[grad_input] = lobes[grad_input].clone().requires_grad_()
@@ -88,9 +133,26 @@ def test_inputs_that_require_grad_stay_eager_on_the_card(monkeypatch, entry, gra
         t[grad_input] = t[grad_input].clone().requires_grad_()
     _card_typed(t)
     assert t["n"].is_cuda and {**lobes, **t}[grad_input].requires_grad
+    pdfs = []
+    if grad_input == "weight" and entry == "bsdf_pdf":
+        monkeypatch.setattr(kernel, "bsdf_pdf", lambda *args: pdfs.append(args) or
+                            bsdf._bsdf_pdf_eager(*args))
     n0 = dict(bsdf.LAUNCHES)
-    _call(entry, lobes, t)
-    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 0, "bsdf_eager": 1}
+    out = _call(entry, lobes, t)
+    if grad_input != "weight":
+        assert _counts(n0) == _routed("eager") and seen == []
+    elif entry == "bsdf_pdf":
+        assert _counts(n0) == _routed("kernel") and len(pdfs) == 1 and seen == []
+        assert not out.requires_grad
+    else:
+        assert _counts(n0) == _routed("kernel_grad")
+        last = t["u2"] if entry == "bsdf_sample" else t["wo"]
+        assert [(e, tuple(map(id, a[1:]))) for e, a in seen] == [
+            (entry, (id(t["n"]), id(t["wi"]), id(last)))]
+        f = out[0] if entry == "bsdf_sample" else out
+        assert f.requires_grad
+        f.sum().backward()
+        assert lobes["weight"].grad is not None and lobes["weight"].grad.shape == (64, 2, 3)
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -106,7 +168,7 @@ def test_card_calls_without_autograd_take_the_kernel(monkeypatch, entry):
     lobes["weight"] = lobes["weight"].clone().requires_grad_()
     with torch.no_grad():
         assert _call(entry, lobes, t) == "from the kernel"
-    assert {k: bsdf.LAUNCHES[k] - n0[k] for k in n0} == {"bsdf_kernel": 2, "bsdf_eager": 0}
+    assert _counts(n0) == {"bsdf_kernel": 2, "bsdf_kernel_grad": 0, "bsdf_eager": 0}
     last = t["u2"] if entry == "bsdf_sample" else t["wo"]
     want = (id(lobes), id(t["n"]), id(t["wi"]), id(last))
     assert [tuple(map(id, a)) for a in seen] == [want] * 2
@@ -130,6 +192,48 @@ def test_spans_only_under_a_profiler_session(monkeypatch):
     assert [s.name for s in got] == ["bsdf.eager", "bsdf.kernel"]
     assert [s.parent for s in got] == [-1, -1]  # one span a call, nothing inside
     profiling.RECORDER.clear()
+
+
+@pytest.mark.parametrize("entry", ("bsdf_f", "bsdf_sample"))
+def test_kernel_grad_span_only_under_a_profiler_session(monkeypatch, entry):
+    _plain_saving(monkeypatch)
+    lobes, t = _case(seed=5)
+    lobes["weight"] = lobes["weight"].clone().requires_grad_()
+    _card_typed(t)
+    names = ("bsdf.kernel", "bsdf.kernel_grad", "bsdf.eager")
+    profiling.RECORDER.clear()
+    _call(entry, lobes, t)
+    assert _spans(names) == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _call(entry, lobes, t)
+    got = _spans(names)
+    assert [s.name for s in got] == ["bsdf.kernel_grad"] and got[0].parent == -1
+    profiling.RECORDER.clear()
+
+
+@pytest.mark.parametrize("weight_kind", ("leaf", "fresnel_weighted"))
+def test_pdf_with_only_the_weight_requiring_grad_takes_the_kernel(monkeypatch, weight_kind):
+    """bsdf_pdf reads no weight: under grad mode, a call whose only input
+    that requires grad is the weight gets the plain kernel handle, counts
+    as the kernel route, is spanned ``bsdf.kernel`` and gives a pdf without
+    grad."""
+    seen = []
+    monkeypatch.setattr(kernel, "bsdf_pdf", lambda *args: seen.append(args) or
+                        bsdf._bsdf_pdf_eager(*args))
+    lobes, t = _case(seed=6)
+    weight = lobes["weight"].clone().requires_grad_()
+    lobes["weight"] = weight if weight_kind == "leaf" else weight * 0.5
+    _card_typed(t)
+    n0 = dict(bsdf.LAUNCHES)
+    profiling.RECORDER.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        pdf = bsdf.bsdf_pdf(lobes, t["n"], t["wi"], t["wo"])
+    assert [s.name for s in _spans(("bsdf.kernel", "bsdf.kernel_grad", "bsdf.eager"))] == [
+        "bsdf.kernel"]
+    profiling.RECORDER.clear()
+    assert _counts(n0) == _routed("kernel")
+    assert [tuple(map(id, a)) for a in seen] == [(id(lobes), id(t["n"]), id(t["wi"]), id(t["wo"]))]
+    assert not pdf.requires_grad and pdf.grad_fn is None
 
 
 def test_launches_registered_with_the_recorder():
